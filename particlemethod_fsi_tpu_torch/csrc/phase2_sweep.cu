@@ -1,0 +1,322 @@
+// Phase-2 window sweep: the pairwise force on each receiver -- pressure-P
+// (P_i + P_j) dwp with the FSI interface rule (structure receivers skip
+// structure senders), pressure-A, viscosity with the harmonic mean
+// mu_h = 2 / (1/mu_i + 1/mu_j) from an inverse-viscosity field, and the
+// diffuse-interface term.
+//
+// Replaces the TPU kernel particlemethod_fsi_tpu/ops/pallas_windows_t.py
+// `_phase2_kernel` (reached through `phase2_forces_pallas_t` -> `_sweep_t`).
+// Every branch of that kernel is here: planar or not and surface tension or
+// not as template parameters; per-pair interaction ratios and non-uniform
+// radii as launch parameters (uniform branches).
+//
+// Bound on an H100: at the flags of the planar scene without surface tension
+// the function needs 40 bytes a particle in float32 (x, y, vx, vy, pressure
+// P, 1/mu, key and type read once, fx and fy written), some ten microseconds
+// at 1M particles; the pair math of the true neighbour pairs needs less time
+// than that at the float32 rate, so by the roofline the kernel is bound by
+// bytes.  As written it moves 52: pos and vel are staged as [N,3] rows and
+// the zero fz row is written.  This simple design is far from that bound: a
+// receiver tests every sender of its block's windows, an order of magnitude
+// more candidates than neighbours, and that candidate loop is where the time
+// goes.  What the design does about it: sender tiles staged once per block
+// in shared memory and read as broadcasts, ring and squared-radius pre-tests
+// before the rsqrt, constants folded on the host.  Cutting the candidates
+// per receiver is left to later work.
+#include "window_sweep.cuh"
+
+enum {
+  P2_RADIUS_P2 = 0, P2_RADIUS_A2, P2_RADIUS_V2, P2_RADIUS_G2,
+  P2_INV_RADIUS_P, P2_INV_RADIUS_A, P2_INV_RADIUS_V, P2_INV_RADIUS_G,
+  P2_DWP_COEF, P2_NORM_A, P2_RADIUS_A, P2_DWV_COEF, P2_NORM_G, P2_DWG_COEF,
+  P2_C_V, P2_VOLUME, P2_SCALE_DI, P2_COF_K2, P2_NCONST
+};
+
+template <typename T>
+struct Phase2Params {
+  const T* pos;         // [N,3]
+  const T* vel;         // [N,3]
+  const int* key;       // [N]
+  const int* prop;      // [N]
+  const T* pp;          // [N] pressure P
+  const T* pa;          // [N] pressure A (read with surface tension only)
+  const T* gc;          // [N,3] gravity centre (surface tension only)
+  const T* invmu;       // [N] 1/mu, inf where mu == 0
+  const int* win_start; // [nblocks, n_off]
+  const int* win_len;   // [nblocks, n_off]
+  T* out;               // [3, N]
+  int n;
+  int n_off;
+  int offs[FSI_MAX_OFFS];
+  T c[P2_NCONST];
+  T ratio[FSI_TYPE_COUNT * FSI_TYPE_COUNT];
+  T cof_a[FSI_TYPE_COUNT];
+  int uniform_ratio;
+  int uniform_radii;
+};
+
+template <typename T, bool PLANAR, bool ST>
+__global__ void phase2_sweep_kernel(const Phase2Params<T> p) {
+  __shared__ T s_pos[FSI_TILE * 3];
+  __shared__ T s_vel[FSI_TILE * 3];
+  __shared__ T s_gc[ST ? FSI_TILE * 3 : 1];
+  __shared__ T s_pp[FSI_TILE];
+  __shared__ T s_pa[ST ? FSI_TILE : 1];
+  __shared__ T s_invmu[FSI_TILE];
+  __shared__ int s_key[FSI_TILE];
+  __shared__ int s_prop[FSI_TILE];
+  __shared__ T s_ratio[FSI_TYPE_COUNT * FSI_TYPE_COUNT];
+
+  const int b = blockIdx.x;
+  const int i = b * blockDim.x + threadIdx.x;  // n is a multiple of blockDim.x
+  const bool with_ratio = ST && !p.uniform_ratio;
+  if (with_ratio) {
+    for (int t = threadIdx.x; t < FSI_TYPE_COUNT * FSI_TYPE_COUNT; t += blockDim.x)
+      s_ratio[t] = p.ratio[t];
+  }
+
+  const T xi = p.pos[3 * i], yi = p.pos[3 * i + 1], zi = p.pos[3 * i + 2];
+  const T vxi = p.vel[3 * i], vyi = p.vel[3 * i + 1], vzi = p.vel[3 * i + 2];
+  const int key_i = p.key[i];
+  const int prop_i = p.prop[i];
+  const int type_i = fsi_clip_type(prop_i);
+  const bool rs = fsi_is_structure(prop_i);
+  const T pp_i = p.pp[i];
+  const T invmu_i = p.invmu[i];
+  T pa_i = 0, gcx_i = 0, gcy_i = 0, gcz_i = 0, a_i = 0;
+  if (ST) {
+    pa_i = p.pa[i];
+    gcx_i = p.gc[3 * i];
+    gcy_i = p.gc[3 * i + 1];
+    gcz_i = p.gc[3 * i + 2];
+    a_i = p.cof_a[type_i] * p.c[P2_COF_K2];
+  }
+
+  T reach2 = p.c[P2_RADIUS_P2];
+  if (!p.uniform_radii) {
+    reach2 = max(reach2, p.c[P2_RADIUS_V2]);
+    if (ST) reach2 = max(reach2, max(p.c[P2_RADIUS_A2], p.c[P2_RADIUS_G2]));
+  }
+  const T volume = p.c[P2_VOLUME];
+  const T scale_di = p.c[P2_SCALE_DI];
+
+  T fx = 0, fy = 0, fz = 0;
+
+  for (int o = 0; o < p.n_off; ++o) {
+    const int start = p.win_start[b * p.n_off + o];
+    const int len = p.win_len[b * p.n_off + o];
+    const int ring_centre = key_i + p.offs[o];
+    for (int t0 = 0; t0 < len; t0 += FSI_TILE) {
+      const int cnt = min(FSI_TILE, len - t0);
+      const int row0 = start + t0;
+      __syncthreads();  // the previous tile is consumed
+      fsi_stage(s_pos, p.pos + 3 * (size_t)row0, 3 * cnt);
+      fsi_stage(s_vel, p.vel + 3 * (size_t)row0, 3 * cnt);
+      fsi_stage(s_pp, p.pp + row0, cnt);
+      fsi_stage(s_invmu, p.invmu + row0, cnt);
+      fsi_stage(s_key, p.key + row0, cnt);
+      fsi_stage(s_prop, p.prop + row0, cnt);
+      if (ST) {
+        fsi_stage(s_pa, p.pa + row0, cnt);
+        fsi_stage(s_gc, p.gc + 3 * (size_t)row0, 3 * cnt);
+      }
+      __syncthreads();
+
+      for (int j = 0; j < cnt; ++j) {
+        const int dk = s_key[j] - ring_centre;
+        if (dk < -1 || dk > 1) continue;
+        const T dx = s_pos[3 * j] - xi;
+        const T dy = s_pos[3 * j + 1] - yi;
+        T rij2 = dx * dx + dy * dy;
+        T dz = 0;
+        if (!PLANAR) {
+          dz = s_pos[3 * j + 2] - zi;
+          rij2 += dz * dz;
+        }
+        // every family mask is the strict radius^2 - rij2 > 0
+        if (!(rij2 > T(0)) || !(rij2 < reach2)) continue;
+        const T inv_r = fsi_rsqrt(rij2);
+        const T rij = rij2 * inv_r;
+        const T ex = dx * inv_r, ey = dy * inv_r;
+        const T ez = PLANAR ? T(0) : dz * inv_r;
+
+        const int prop_j = s_prop[j];
+        const bool ss = fsi_is_structure(prop_j);
+        T ratio_ij = 1, ratio_ji = 1;
+        if (with_ratio) {
+          ratio_ij = fsi_ratio(s_ratio, type_i, prop_j);
+          ratio_ji = (prop_j >= 0 && prop_j < FSI_TYPE_COUNT)
+                         ? s_ratio[prop_j * FSI_TYPE_COUNT + type_i]
+                         : T(0);
+        }
+
+        // pressureP + FSI interface load: fluid/wall receivers take all
+        // senders, structure receivers only non-structure senders
+        const bool m_p = p.c[P2_RADIUS_P2] - rij2 > T(0);
+        const T q_p = rij * p.c[P2_INV_RADIUS_P];
+        const T omq_p = T(1) - q_p;
+        T radial = 0;
+        if (m_p && !(rs && ss)) {
+          const T dwp = p.c[P2_DWP_COEF] * omq_p;
+          radial = (pp_i + s_pp[j]) * dwp * volume;
+        }
+
+        // pressureA; exactly zero without surface tension
+        if (ST) {
+          bool m_a = m_p;
+          T q_a = q_p, omq_a = omq_p;
+          if (!p.uniform_radii) {
+            m_a = p.c[P2_RADIUS_A2] - rij2 > T(0);
+            q_a = rij * p.c[P2_INV_RADIUS_A];
+            omq_a = T(1) - q_a;
+          }
+          if (m_a && !rs) {
+            const T dwa = p.c[P2_NORM_A] * omq_a * (T(1) - T(3) * q_a) /
+                          p.c[P2_RADIUS_A];
+            radial += (pa_i * ratio_ij + s_pa[j] * ratio_ji) * dwa * volume;
+          }
+        }
+
+        // viscosity: a zero viscosity makes its inverse infinite and mu_h
+        // exactly 0
+        {
+          bool m_v = m_p;
+          T omq_v = omq_p;
+          if (!p.uniform_radii) {
+            m_v = p.c[P2_RADIUS_V2] - rij2 > T(0);
+            omq_v = T(1) - rij * p.c[P2_INV_RADIUS_V];
+          }
+          if (m_v && !rs) {
+            T udote = (s_vel[3 * j] - vxi) * ex + (s_vel[3 * j + 1] - vyi) * ey;
+            if (!PLANAR) udote += (s_vel[3 * j + 2] - vzi) * ez;
+            const T mu_h = T(2) / (invmu_i + s_invmu[j]);
+            const T dwv = p.c[P2_DWV_COEF] * omq_v;
+            radial += p.c[P2_C_V] * mu_h * udote * (-dwv) * inv_r * volume;
+          }
+        }
+
+        fx += radial * ex;
+        fy += radial * ey;
+        if (!PLANAR) fz += radial * ez;
+
+        // diffuse interface; zero without surface tension
+        if (ST) {
+          bool m_g = m_p;
+          T omq_g = omq_p;
+          if (!p.uniform_radii) {
+            m_g = p.c[P2_RADIUS_G2] - rij2 > T(0);
+            omq_g = T(1) - rij * p.c[P2_INV_RADIUS_G];
+          }
+          if (m_g && !rs) {
+            const T wgv = p.c[P2_NORM_G] * (omq_g * omq_g);
+            const T dwg = p.c[P2_DWG_COEF] * omq_g;
+            const T wij = ratio_ij * wgv, wji = ratio_ji * wgv;
+            const T dwij = ratio_ij * dwg, dwji = ratio_ji * dwg;
+            const T gcx_j = s_gc[3 * j], gcy_j = s_gc[3 * j + 1];
+            const T t1x = a_i * (gcx_j * wji - gcx_i * wij) * scale_di;
+            const T t1y = a_i * (gcy_j * wji - gcy_i * wij) * scale_di;
+            T gr_sum = (gcx_j * dwji - gcx_i * dwij) * dx +
+                       (gcy_j * dwji - gcy_i * dwij) * dy;
+            T t1z = 0;
+            if (!PLANAR) {
+              const T gcz_j = s_gc[3 * j + 2];
+              t1z = a_i * (gcz_j * wji - gcz_i * wij) * scale_di;
+              gr_sum += (gcz_j * dwji - gcz_i * dwij) * dz;
+            }
+            const T gr = a_i * gr_sum;
+            fx -= t1x + gr * ex * scale_di;
+            fy -= t1y + gr * ey * scale_di;
+            if (!PLANAR) fz -= t1z + gr * ez * scale_di;
+          }
+        }
+      }
+    }
+  }
+
+  const size_t n = p.n;
+  p.out[i] = fx;
+  p.out[n + i] = fy;
+  p.out[2 * n + i] = fz;
+}
+
+template <typename T>
+static int launch_phase2(const void* pos, const void* vel, const void* key,
+                         const void* prop, const void* pp, const void* pa,
+                         const void* gc, const void* invmu,
+                         const void* win_start, const void* win_len, void* out,
+                         int n, int block, int n_off, const int* offs,
+                         const double* consts, const double* ratio,
+                         const double* cof_a, int planar, int surface_tension,
+                         int uniform_ratio, int uniform_radii,
+                         cudaStream_t stream) {
+  Phase2Params<T> p;
+  p.pos = static_cast<const T*>(pos);
+  p.vel = static_cast<const T*>(vel);
+  p.key = static_cast<const int*>(key);
+  p.prop = static_cast<const int*>(prop);
+  p.pp = static_cast<const T*>(pp);
+  p.pa = static_cast<const T*>(pa);
+  p.gc = static_cast<const T*>(gc);
+  p.invmu = static_cast<const T*>(invmu);
+  p.win_start = static_cast<const int*>(win_start);
+  p.win_len = static_cast<const int*>(win_len);
+  p.out = static_cast<T*>(out);
+  p.n = n;
+  p.n_off = n_off;
+  for (int o = 0; o < n_off; ++o) p.offs[o] = offs[o];
+  for (int k = 0; k < P2_NCONST; ++k) p.c[k] = static_cast<T>(consts[k]);
+  for (int k = 0; k < FSI_TYPE_COUNT * FSI_TYPE_COUNT; ++k)
+    p.ratio[k] = static_cast<T>(ratio[k]);
+  for (int k = 0; k < FSI_TYPE_COUNT; ++k) p.cof_a[k] = static_cast<T>(cof_a[k]);
+  p.uniform_ratio = uniform_ratio;
+  p.uniform_radii = uniform_radii;
+
+  const dim3 grid(n / block), threads(block);
+  if (planar) {
+    if (surface_tension)
+      phase2_sweep_kernel<T, true, true><<<grid, threads, 0, stream>>>(p);
+    else
+      phase2_sweep_kernel<T, true, false><<<grid, threads, 0, stream>>>(p);
+  } else {
+    if (surface_tension)
+      phase2_sweep_kernel<T, false, true><<<grid, threads, 0, stream>>>(p);
+    else
+      phase2_sweep_kernel<T, false, false><<<grid, threads, 0, stream>>>(p);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Plain C entry point.  is_double selects the instance; all pointers are
+// device pointers except offs, consts (P2_NCONST doubles), ratio (36 doubles)
+// and cof_a (6 doubles), which are host arrays.  pa and gc may be null
+// without surface tension.  Returns cudaGetLastError() of the launch
+// (0 = success), or -1 for arguments the kernel does not take.
+extern "C" int fsi_phase2_sweep(int is_double, const void* pos,
+                                const void* vel, const void* key,
+                                const void* prop, const void* pp,
+                                const void* pa, const void* gc,
+                                const void* invmu, const void* win_start,
+                                const void* win_len, void* out, int n,
+                                int block, int n_off, const int* offs,
+                                const double* consts, const double* ratio,
+                                const double* cof_a, int planar,
+                                int surface_tension, int uniform_ratio,
+                                int uniform_radii, void* stream) {
+  if (block <= 0 || block > 1024 || n % block != 0 || n_off <= 0 ||
+      n_off > FSI_MAX_OFFS)
+    return -1;
+  if (surface_tension && (pa == nullptr || gc == nullptr)) return -1;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_double)
+    return launch_phase2<double>(pos, vel, key, prop, pp, pa, gc, invmu,
+                                 win_start, win_len, out, n, block, n_off,
+                                 offs, consts, ratio, cof_a, planar,
+                                 surface_tension, uniform_ratio, uniform_radii,
+                                 s);
+  return launch_phase2<float>(pos, vel, key, prop, pp, pa, gc, invmu,
+                              win_start, win_len, out, n, block, n_off, offs,
+                              consts, ratio, cof_a, planar, surface_tension,
+                              uniform_ratio, uniform_radii, s);
+}
+
+extern "C" int fsi_phase2_nconst() { return P2_NCONST; }

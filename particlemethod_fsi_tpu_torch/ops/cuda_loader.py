@@ -1,0 +1,137 @@
+"""Build and load the hand-written CUDA kernels in ``csrc/``.
+
+No counterpart in the JAX package (there Pallas compiles the TPU kernels).
+The sources have a plain C interface and include no PyTorch header, so
+``nvcc`` needs seconds: every ``*.cu`` is compiled to an object for
+``sm_90a`` by its own ``nvcc`` process, all started together, and the objects
+are linked into one shared library that ``ctypes`` loads.  The build happens
+at first use (never at import), from the sources in the package alone, into
+``particlemethod_fsi_tpu_torch/_build/<hash of the sources>/`` so that an
+edit rebuilds.  A failed build raises with the compiler's output; nothing
+falls back.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC_DIR = _PKG / "csrc"
+BUILD_ROOT = _PKG / "_build"
+LIB_NAME = "libfsi_kernels.so"
+
+# no -use_fast_math: the viscosity term needs 2/(inf + x) == 0 and the pair
+# masks need rij2 > 0 exactly
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_lib = None
+_lib_dir = None  # build directory of the library in use
+
+
+def _find_nvcc() -> str:
+    cands = [shutil.which("nvcc")]
+    for var in ("CUDA_HOME", "CUDA_PATH"):
+        if os.environ.get(var):
+            cands.append(os.path.join(os.environ[var], "bin", "nvcc"))
+    cands.append("/usr/local/cuda/bin/nvcc")
+    for c in cands:
+        if c and os.path.isfile(c):
+            return c
+    raise RuntimeError(
+        "nvcc not found (PATH, CUDA_HOME, /usr/local/cuda): the CUDA kernels "
+        "cannot be built on this machine")
+
+
+def _source_hash(files) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in files:
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _build(sources, out_dir: Path) -> Path:
+    nvcc = _find_nvcc()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = []
+    for src in sources:
+        obj = out_dir / (src.stem + ".o")
+        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC_DIR), "-c", str(src),
+               "-o", str(obj)]
+        procs.append((src, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    log, failed = [], []
+    for src, obj, proc in procs:
+        out, _ = proc.communicate()
+        log.append(f"== {src.name}\n{out}")
+        if proc.returncode != 0:
+            failed.append(src.name)
+    (out_dir / "build.log").write_text("\n".join(log))
+    if failed:
+        raise RuntimeError(
+            f"nvcc failed on {', '.join(failed)}:\n" + "\n".join(log))
+    tmp = out_dir / (LIB_NAME + f".tmp{os.getpid()}")
+    link = subprocess.run(
+        [nvcc, "-shared", "-o", str(tmp), *[str(o) for _, o, _ in procs]],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
+    lib = out_dir / LIB_NAME
+    os.replace(tmp, lib)
+    return lib
+
+
+def _declare(lib: ctypes.CDLL) -> None:
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    ip = ctypes.POINTER(ctypes.c_int)
+    dp = ctypes.POINTER(ctypes.c_double)
+    lib.fsi_phase1_sweep.restype = ci
+    lib.fsi_phase1_sweep.argtypes = [
+        ci, vp, vp, vp, vp, vp, vp, vp,  # is_double, pos vel key prop ws wl out
+        ci, ci, ci, ip, dp, dp,  # n block n_off offs consts ratio
+        ci, ci, ci, ci, ci, vp,  # planar st with_ratio uniform_radii count stream
+    ]
+    lib.fsi_phase2_sweep.restype = ci
+    lib.fsi_phase2_sweep.argtypes = [
+        ci, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp,  # .. invmu ws wl out
+        ci, ci, ci, ip, dp, dp, dp,  # n block n_off offs consts ratio cof_a
+        ci, ci, ci, ci, vp,  # planar st uniform_ratio uniform_radii stream
+    ]
+    lib.fsi_phase1_nconst.restype = ci
+    lib.fsi_phase1_nconst.argtypes = []
+    lib.fsi_phase2_nconst.restype = ci
+    lib.fsi_phase2_nconst.argtypes = []
+
+
+def load() -> ctypes.CDLL:
+    """The kernels' shared library, built first if this source tree has not
+    been built yet."""
+    global _lib, _lib_dir
+    if _lib is not None:
+        return _lib
+    sources = sorted(CSRC_DIR.glob("*.cu"))
+    if not sources:
+        raise RuntimeError(f"no CUDA sources under {CSRC_DIR}")
+    tag = _source_hash(sources + sorted(CSRC_DIR.glob("*.cuh")))
+    lib_path = BUILD_ROOT / tag / LIB_NAME
+    if not lib_path.exists():
+        lib_path = _build(sources, BUILD_ROOT / tag)
+    lib = ctypes.CDLL(str(lib_path))
+    _declare(lib)
+    _lib, _lib_dir = lib, lib_path.parent
+    return lib
+
+
+def build_log() -> str:
+    """The compiler's output of the build in use (registers, shared memory
+    and spills of each kernel, from ``-Xptxas -v``)."""
+    load()
+    return (_lib_dir / "build.log").read_text()

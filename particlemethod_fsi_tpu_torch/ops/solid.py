@@ -1,0 +1,325 @@
+"""Total-Lagrangian elastic solid pipeline.
+
+Counterpart of ``particlemethod_fsi_tpu/ops/solid.py``.  Ported:
+:class:`SolidStatic`, :func:`inverse_with_identity_fallback`,
+:func:`build_solid_static`, :func:`deformation_gradient_subset`,
+:func:`stvk_stress`, :func:`stress_velocity_kick`, :func:`substep_subset`,
+:func:`run_substeps`.  ``subset_tensors_to_full`` (diagnostics) is not ported
+yet.
+
+Re-implements the reference's solid op chain (``src/main.cpp``):
+``calculateNormalizer`` (:2544-2653), ``calculateElasticDeformationVector``
+(:2673-2754), ``calculateStress`` (:2756-2809), ``calculateStressForce``
+(:2812-2890) in its scatter-free symmetric form, and
+``updateElasticPosition`` (:1910-2082) with the double-position-update quirk
+Q1.  All solid state lives in a compact subset index space of the structure
+particles only (``s_idx`` maps subset -> global slot), so solid cost scales
+with the structure count.
+
+Two things differ from the JAX module, neither in the numbers:
+
+* The 2x2 / 3x3 contractions (F = F_raw A^-1, C = F^T F, P = F S A^-1) are
+  written as explicit elementwise products and sums, so no matrix-multiply
+  path, and hence no TF32 path, can be taken on the card: E = (F^T F - I)/2
+  is a difference of two O(1) numbers and F must be I at rest.
+* Padding rows of ``s_idx`` point one past the last slot, as there.  JAX
+  clamps such a gather and drops such a scatter; PyTorch does neither, so
+  the gather uses ``gather_idx`` (the same indices clamped) and the scatter
+  writes the ``n_struct`` valid rows only -- the same result.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from particlemethod_fsi_tpu_torch.config import TYPE_COUNT, SceneConfig
+from particlemethod_fsi_tpu_torch.ops.neighbors import min_image
+from particlemethod_fsi_tpu_torch.ops.smoothing import KernelSet
+
+
+class SolidStatic(NamedTuple):
+    """Reference-configuration quantities in compact structure-subset space,
+    computed once at setup.  S = padded structure count, K0 = max initial
+    neighbors, sd = spatial dim."""
+
+    s_idx: torch.Tensor  # [S] int32 global slot per subset entry (n_pad on padding)
+    s_valid: torch.Tensor  # [S] bool
+    nbr0: torch.Tensor  # [S, K0] int64 SUBSET indices of initial neighbors
+    mask0: torch.Tensor  # [S, K0]
+    xij0: torch.Tensor  # [S, K0, sd] min-image initial separations
+    wij0: torch.Tensor  # [S, K0] WLS weights w(|xij0|, RadiusP)
+    normalizer: torch.Tensor  # [S, sd, sd] A^-1 (identity fallback)
+    sub_pos0: torch.Tensor  # [S, 3] initial positions of subset entries
+    inv_rho: torch.Tensor  # [S] 1/Density[prop]
+    lam: torch.Tensor  # [S] Lame lambda
+    mu: torch.Tensor  # [S] Lame mu
+    clamp: torch.Tensor  # [S] bool Dirichlet-clamped
+    count0_full: torch.Tensor  # [N] int32 initial neighbor counts (diagnostics)
+    gather_idx: torch.Tensor  # [S] int64: s_idx clamped to the last slot
+    n_struct: int  # valid rows = the first n_struct
+
+    @property
+    def s_pad(self) -> int:
+        return self.s_idx.shape[0]
+
+
+def inverse_with_identity_fallback(a: np.ndarray) -> np.ndarray:
+    """Batched explicit 2x2 / cofactor 3x3 inverse with identity fallback on
+    det == 0, matching calculateNormalizer (src/main.cpp:2590-2651).  Host
+    numpy (setup only)."""
+    sd = a.shape[-1]
+    if sd == 2:
+        det = a[..., 0, 0] * a[..., 1, 1] - a[..., 0, 1] * a[..., 1, 0]
+        adj = np.stack(
+            [
+                np.stack([a[..., 1, 1], -a[..., 0, 1]], axis=-1),
+                np.stack([-a[..., 1, 0], a[..., 0, 0]], axis=-1),
+            ],
+            axis=-2,
+        )
+    elif sd == 3:
+        def cof(i1, j1, i2, j2):
+            return a[..., i1, j1] * a[..., i2, j2] - a[..., i1, j2] * a[..., i2, j1]
+
+        det = (
+            a[..., 0, 0] * cof(1, 1, 2, 2)
+            - a[..., 0, 1] * (a[..., 1, 0] * a[..., 2, 2] - a[..., 1, 2] * a[..., 2, 0])
+            + a[..., 0, 2] * (a[..., 1, 0] * a[..., 2, 1] - a[..., 1, 1] * a[..., 2, 0])
+        )
+        rows = []
+        # adjugate rows as written in the reference (:2631-2641)
+        rows.append(np.stack([cof(1, 1, 2, 2), -cof(1, 0, 2, 2), cof(1, 0, 2, 1)], axis=-1))
+        rows.append(np.stack([-cof(0, 1, 2, 2), cof(0, 0, 2, 2), -cof(0, 0, 2, 1)], axis=-1))
+        rows.append(np.stack([cof(0, 1, 1, 2), -cof(0, 0, 1, 2), cof(0, 0, 1, 1)], axis=-1))
+        adj = np.stack(rows, axis=-2)
+    else:
+        raise ValueError(f"unsupported spatial dim {sd}")
+    ok = det != 0.0
+    safe_det = np.where(ok, det, 1.0)
+    inv = adj / safe_det[..., None, None]
+    eye = np.eye(sd, dtype=a.dtype)
+    return np.where(ok[..., None, None], inv, eye)
+
+
+def build_solid_static(
+    pos0_host,
+    prop_host,
+    nbr0_idx,
+    nbr0_mask,
+    ks: KernelSet,
+    cfg_tables,
+    scene: SceneConfig,
+    domain_width,
+    *,
+    spatial_dim: int,
+    dtype: torch.dtype,
+    device="cpu",
+    pad_multiple: int = 128,
+) -> SolidStatic:
+    """Compact the global structure particles + their initial neighbor lists
+    (``nbr0_idx`` / ``nbr0_mask``: ``[n_pad, K0]`` global slot indices and
+    validity, host numpy) into subset space and precompute every static
+    quantity.  Runs entirely host-side in float64 numpy and uploads only the
+    final subset-sized arrays.  ``cfg_tables`` is the CaseConfig."""
+    sd = spatial_dim
+    prop_h = np.asarray(prop_host)
+    pos0_h = np.asarray(pos0_host, dtype=np.float64)
+    width = np.asarray(domain_width, dtype=np.float64)
+    s_mask_h = (prop_h >= 2) & (prop_h < 4)
+    s_idx_h = np.nonzero(s_mask_h)[0].astype(np.int32)
+    n_s = int(s_idx_h.size)
+    s_pad = max(pad_multiple, ((n_s + pad_multiple - 1) // pad_multiple) * pad_multiple)
+
+    # global slot -> subset index map
+    g2s = np.zeros(prop_h.shape[0], dtype=np.int32)
+    g2s[s_idx_h] = np.arange(n_s, dtype=np.int32)
+
+    # padding entries index one past the end (see module docstring)
+    s_idx = np.full(s_pad, prop_h.shape[0], dtype=np.int32)
+    s_idx[:n_s] = s_idx_h
+    s_valid = np.zeros(s_pad, dtype=bool)
+    s_valid[:n_s] = True
+
+    idx0_h = np.asarray(nbr0_idx)[s_idx_h]  # [n_s, K0] global ids
+    mask0_h = np.asarray(nbr0_mask)[s_idx_h].copy()
+    # only structure-structure edges participate (src/main.cpp:1608)
+    mask0_h &= s_mask_h[idx0_h]
+    k0 = idx0_h.shape[1]
+    nbr0_sub = np.zeros((s_pad, k0), dtype=np.int32)
+    nbr0_sub[:n_s] = np.where(mask0_h, g2s[idx0_h], 0)
+    mask0 = np.zeros((s_pad, k0), dtype=bool)
+    mask0[:n_s] = mask0_h
+
+    sub_pos0 = np.zeros((s_pad, 3), dtype=np.float64)
+    sub_pos0[:n_s] = pos0_h[s_idx_h]
+
+    dxy = sub_pos0[nbr0_sub] - sub_pos0[:, None, :]
+    dxy -= width * np.floor(dxy / width + 0.5)  # min-image
+    xij0 = np.where(mask0[..., None], dxy, 0.0)[..., :sd]
+    # the WLS weight uses only the in-plane components in 2-D
+    # (weight(), src/main.cpp:273-287); z is zero here anyway
+    r0 = np.sqrt(np.sum(xij0 * xij0, axis=-1))
+    wij0 = np.where(mask0, ks.weight(r0, ks.radius_p), 0.0)
+
+    # moment matrix A = sum w x0 (x) x0 and its inverse with identity
+    # fallback on det == 0 (calculateNormalizer, src/main.cpp:2564-2651)
+    a = np.einsum("nk,nki,nkj->nij", wij0, xij0, xij0)
+    normalizer = inverse_with_identity_fallback(a)
+
+    density_t = np.asarray(cfg_tables.density, dtype=np.float64)
+    young_t = np.asarray(cfg_tables.young_modulus, dtype=np.float64)
+    poisson_t = np.asarray(cfg_tables.poisson_ratio, dtype=np.float64)
+    gather_idx = np.minimum(s_idx, prop_h.shape[0] - 1)
+    sub_prop = np.where(s_valid, prop_h[gather_idx], 0)
+    sub_prop = np.clip(sub_prop, 0, TYPE_COUNT - 1)
+    rho = density_t[sub_prop]
+    inv_rho = np.where((rho > 0) & s_valid, 1.0 / np.where(rho > 0, rho, 1.0), 0.0)
+    # Lame constants (calculateLamesconstant, src/main.cpp:2533-2539)
+    e_mod = young_t[sub_prop]
+    nu = poisson_t[sub_prop]
+    lam = np.where(s_valid, e_mod * nu / ((1.0 + nu) * (1.0 - 2.0 * nu)), 0.0)
+    mu = np.where(s_valid, e_mod / (2.0 * (1.0 + nu)), 0.0)
+
+    if scene.has_clamp:
+        x0 = sub_pos0[:, scene.clamp_axis]
+        c = (x0 > scene.clamp_threshold) if scene.clamp_greater else (
+            x0 < scene.clamp_threshold)
+        if scene.clamp2_threshold is not None:
+            c2 = (x0 > scene.clamp2_threshold) if scene.clamp2_greater else (
+                x0 < scene.clamp2_threshold)
+            c = c | c2
+        clamp = s_valid & c
+    else:
+        clamp = np.zeros(s_pad, dtype=bool)
+
+    count0_full = np.zeros(prop_h.shape[0], dtype=np.int32)
+    count0_full[s_idx_h] = mask0[:n_s].sum(axis=1)
+
+    def f(x):
+        return torch.as_tensor(np.ascontiguousarray(x)).to(
+            device=device, dtype=dtype)
+
+    def g(x, dt=None):
+        return torch.as_tensor(np.ascontiguousarray(x)).to(
+            device=device, dtype=dt)
+
+    return SolidStatic(
+        s_idx=g(s_idx),
+        s_valid=g(s_valid),
+        nbr0=g(nbr0_sub, torch.int64),
+        mask0=g(mask0),
+        xij0=f(xij0),
+        wij0=f(wij0),
+        normalizer=f(normalizer),
+        sub_pos0=f(sub_pos0),
+        inv_rho=f(inv_rho),
+        lam=f(lam),
+        mu=f(mu),
+        clamp=g(clamp),
+        count0_full=g(count0_full),
+        gather_idx=g(gather_idx, torch.int64),
+        n_struct=n_s,
+    )
+
+
+def _matmul_small(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Batched [n, sd, sd] x [n, sd, sd] product as elementwise products and
+    one sum: full working precision on any device (no TF32)."""
+    return (a[:, :, :, None] * b[:, None, :, :]).sum(dim=2)
+
+
+def deformation_gradient_subset(sub_pos, solid: SolidStatic, domain_width):
+    """F = [sum w xij (x) xij0] A^-1 with xij = xij0 + (uj - ui),
+    u = min-image(pos - pos0), all in subset space
+    (calculateElasticDeformationVector, src/main.cpp:2700-2752)."""
+    sd = solid.xij0.shape[-1]
+    u = min_image(sub_pos - solid.sub_pos0, domain_width)[..., :sd]  # [S,sd]
+    u_rows = u.T  # [sd, S]
+    uj = u_rows[:, solid.nbr0]  # [sd, S, K0]
+    w = solid.wij0  # pre-masked weights (zero on empty neighbor slots)
+    cols = []
+    for i in range(sd):
+        xij_i = solid.xij0[..., i] + (uj[i] - u_rows[i][:, None])  # [S, K0]
+        cols.append(torch.stack(
+            [torch.sum(w * xij_i * solid.xij0[..., j], dim=1)
+             for j in range(sd)], dim=1))
+    f_raw = torch.stack(cols, dim=1)  # [S, sd, sd]
+    return _matmul_small(f_raw, solid.normalizer)
+
+
+def stvk_stress(f, lam, mu):
+    """Green-Lagrange strain E = (F^T F - I)/2 and StVK 2nd PK stress
+    S = 2 mu E + lambda tr(E) I (calculateStress, src/main.cpp:2768-2808)."""
+    sd = f.shape[-1]
+    eye = torch.eye(sd, dtype=f.dtype, device=f.device)
+    c = (f[:, :, :, None] * f[:, :, None, :]).sum(dim=1)  # F^T F
+    strain = 0.5 * (c - eye)
+    tr = torch.diagonal(strain, dim1=-2, dim2=-1).sum(dim=-1)
+    stress = 2.0 * mu[:, None, None] * strain + (lam * tr)[:, None, None] * eye
+    return strain, stress
+
+
+def stress_velocity_kick(f, stress, solid: SolidStatic, elastic_dt: float):
+    """Velocity increment [S, sd] from internal elastic forces, in the
+    scatter-free symmetric form (replaces the ``acc atomic`` action-reaction
+    of calculateStressForce, src/main.cpp:2834-2888):
+
+        P_i   = F_i S_i A_i^-1
+        dv_i  = (dtE / rho_i) * sum_j w(xij0) (P_i + P_j) xij0
+    """
+    p_nom = _matmul_small(_matmul_small(f, stress), solid.normalizer)
+    sd = p_nom.shape[-1]
+    s_n = p_nom.shape[0]
+    p_rows = p_nom.reshape(s_n, sd * sd).T  # [sd2, S]
+    p_j = p_rows[:, solid.nbr0]  # [sd2, S, K0]
+    p_sum = p_j + p_rows[:, :, None]
+    kick_comps = []
+    for a in range(sd):
+        acc = torch.zeros_like(solid.wij0)  # [S, K0]
+        for b in range(sd):
+            acc = acc + p_sum[a * sd + b] * solid.xij0[..., b]
+        acc = torch.where(solid.mask0, solid.wij0 * acc, torch.zeros_like(acc))
+        kick_comps.append(torch.sum(acc, dim=1))
+    kick = torch.stack(kick_comps, dim=1)  # [S, sd]
+    return elastic_dt * solid.inv_rho[:, None] * kick
+
+
+def substep_subset(sub_pos, sub_vel, solid: SolidStatic, domain_width,
+                   elastic_dt: float, *, double_position_update: bool):
+    """One elastic substep in subset space: F -> (E, S) -> velocity kick ->
+    clamp + integrate (the inner loop of main(), src/main.cpp:655-663, and
+    updateElasticPosition, :1910-2082 with quirk Q1: free particles advance
+    their position twice per substep, :2045-2079)."""
+    sd = solid.xij0.shape[-1]
+    f = deformation_gradient_subset(sub_pos, solid, domain_width)
+    strain, stress = stvk_stress(f, solid.lam, solid.mu)
+    dv = stress_velocity_kick(f, stress, solid, elastic_dt)
+    dv = torch.where(solid.s_valid[:, None], dv, torch.zeros_like(dv))
+    sub_vel = torch.cat([sub_vel[:, :sd] + dv, sub_vel[:, sd:]], dim=1)
+
+    factor = 2.0 if double_position_update else 1.0
+    sub_vel = torch.where(solid.clamp[:, None], torch.zeros_like(sub_vel), sub_vel)
+    moved = sub_pos + factor * elastic_dt * sub_vel
+    sub_pos = torch.where(solid.clamp[:, None], solid.sub_pos0, moved)
+    return sub_pos, sub_vel, strain, stress
+
+
+def run_substeps(pos, vel, solid: SolidStatic, domain_width, elastic_dt: float,
+                 substeps: int, *, double_position_update: bool):
+    """Gather structure subset, run the substep loop, scatter back.  Returns
+    new ``pos`` / ``vel`` tensors; the inputs are left intact."""
+    sub_pos = pos[solid.gather_idx]
+    sub_vel = vel[solid.gather_idx]
+    for _ in range(substeps):
+        sub_pos, sub_vel, _, _ = substep_subset(
+            sub_pos, sub_vel, solid, domain_width, elastic_dt,
+            double_position_update=double_position_update,
+        )
+    n_s = solid.n_struct
+    rows = solid.gather_idx[:n_s]
+    pos = pos.index_copy(0, rows, sub_pos[:n_s])
+    vel = vel.index_copy(0, rows, sub_vel[:n_s])
+    return pos, vel

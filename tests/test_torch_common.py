@@ -1,0 +1,85 @@
+"""Helpers of the ``test_torch_*`` files: carry JAX-side objects across to the
+PyTorch port as numpy arrays and plain dicts (the port imports nothing of the
+JAX package, so the unpacking happens here, on the tests' side)."""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import sys
+
+import numpy as np
+import torch
+
+from particlemethod_fsi_tpu.state import to_numpy as jax_to_numpy
+from particlemethod_fsi_tpu_torch import convert
+from particlemethod_fsi_tpu_torch.io.grid_file import GridData as PortGridData
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+F64 = torch.float64
+
+
+def fields_np(obj) -> dict:
+    """NamedTuple of arrays -> dict of numpy arrays."""
+    return {k: np.asarray(v) for k, v in obj._asdict().items()}
+
+
+def port_cfg(cfg):
+    return convert.case_config_from_dict(dataclasses.asdict(cfg))
+
+
+def port_grid(grid) -> PortGridData:
+    return PortGridData(**{
+        f.name: (np.array(getattr(grid, f.name))
+                 if isinstance(getattr(grid, f.name), np.ndarray)
+                 else getattr(grid, f.name))
+        for f in dataclasses.fields(grid)})
+
+
+def port_state(jstate):
+    return convert.state_from_numpy(jax_to_numpy(jstate), dtype=F64)
+
+
+def port_frame(jframe):
+    return convert.sorted_frame_from_numpy(fields_np(jframe), dtype=F64)
+
+
+def port_statics(jsim):
+    """(grid, kernels, tables, window config) of a JAX Simulation, as the
+    port's objects."""
+    return (
+        convert.cell_grid_from_dict(dataclasses.asdict(jsim._frame_grid)),
+        convert.kernel_set_from_dict(dataclasses.asdict(jsim.kernels)),
+        convert.type_tables_from_numpy(fields_np(jsim.tables), dtype=F64),
+        convert.window_config_from_dict(jsim._pcfg._asdict()),
+    )
+
+
+def jitter(grid, seed: int, *, pos_scale: float = 0.05, vel_scale: float = 0.05):
+    """Seeded numpy noise on the in-plane (or all, in 3-D) positions and
+    velocities of the non-wall particles, so that no pair sits exactly on a
+    radius boundary and the velocity terms are live."""
+    rng = np.random.default_rng(seed)
+    flat = np.all(grid.position[:, 2] == grid.position[0, 2])
+    nd = 2 if flat else 3
+    free = grid.prop < 4
+    grid.position[free, :nd] += rng.normal(
+        scale=pos_scale * grid.spacing, size=(int(free.sum()), nd))
+    grid.velocity[free, :nd] = rng.normal(
+        scale=vel_scale, size=(int(free.sum()), nd))
+    return grid
+
+
+WINDOW_KW = dict(backend="pallas_t", pallas_block=32, pallas_wmax=128)
+
+
+def bench_sims(n_side: int, **numerics_kw):
+    """(JAX Simulation, port Simulation) of the bench scene, float64, CPU."""
+    import bench
+    from particlemethod_fsi_tpu_torch.models import build_case
+
+    kw = dict(dtype="float64", pallas_block=32, pallas_wmax=128, **numerics_kw)
+    jsim = bench.build_case(n_side, backend="pallas_t", **kw)
+    psim = build_case(n_side, device="cpu", **kw)
+    return jsim, psim

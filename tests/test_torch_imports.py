@@ -1,0 +1,127 @@
+"""The PyTorch port stands alone: it imports and runs with ``jax``, ``flax``
+and the JAX package made unimportable, its sources name none of them, its
+kernel modules import without a compiler or a card, and without
+``device="cpu"`` it raises on a machine with no GPU."""
+
+import os
+import re
+import subprocess
+import sys
+import textwrap
+
+import pytest
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = os.path.join(REPO, "particlemethod_fsi_tpu_torch")
+
+_BLOCK = textwrap.dedent("""
+    import importlib.abc, sys
+
+    class Block(importlib.abc.MetaPathFinder):
+        def find_spec(self, name, path=None, target=None):
+            root = name.split(".")[0]
+            if root in ("jax", "jaxlib", "flax", "particlemethod_fsi_tpu"):
+                raise ImportError("blocked for this test: " + name)
+            return None
+
+    sys.meta_path.insert(0, Block())
+""")
+
+
+def _run(body: str):
+    return subprocess.run(
+        [sys.executable, "-c", _BLOCK + textwrap.dedent(body)], cwd=REPO,
+        capture_output=True, text=True, timeout=300)
+
+
+def test_port_runs_with_jax_unimportable():
+    r = _run("""
+        import torch
+        import particlemethod_fsi_tpu_torch as port
+        from particlemethod_fsi_tpu_torch.models import build_case
+        from particlemethod_fsi_tpu_torch.ops import windows_t, cuda_loader
+        for blocked in ("jax", "flax", "particlemethod_fsi_tpu"):
+            try:
+                __import__(blocked)
+            except ImportError:
+                pass
+            else:
+                raise SystemExit(blocked + " was importable")
+        sim = build_case(12, device="cpu", dtype="float64", pallas_block=32)
+        out = sim.run_chunk(sim.state0, 2)
+        assert bool(torch.isfinite(out.pos).all())
+        assert sim.rebuilds >= 1
+        assert windows_t.launch_counts == {"phase1_sweep": 0, "phase2_sweep": 0}
+        assert not [m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "flax", "triton")]
+        print("PORT_OK", sim.n)
+    """)
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert "PORT_OK" in r.stdout
+
+
+def test_without_device_cpu_it_raises_where_there_is_no_gpu():
+    r = _run("""
+        import torch
+        from particlemethod_fsi_tpu_torch.models import bench_config, bench_grid
+        from particlemethod_fsi_tpu_torch.solver import Simulation
+        if torch.cuda.is_available():
+            print("HAS_GPU")
+            raise SystemExit(0)
+        try:
+            Simulation(bench_config(), bench_grid(12))
+        except RuntimeError as e:
+            print("RAISED", e)
+        else:
+            raise SystemExit("carried on on the CPU")
+        try:
+            Simulation(bench_config(), bench_grid(12), device="cuda")
+        except RuntimeError as e:
+            print("RAISED_CUDA", e)
+        else:
+            raise SystemExit("carried on on the CPU")
+    """)
+    assert r.returncode == 0, r.stderr[-2000:]
+    if "HAS_GPU" not in r.stdout:
+        assert "RAISED" in r.stdout and "RAISED_CUDA" in r.stdout
+
+
+def _sources():
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, names in os.walk(PORT):
+        if "_build" in root or "__pycache__" in root:
+            continue
+        files += [os.path.join(root, n) for n in names
+                  if n.endswith((".py", ".cu", ".cuh"))]
+    return files
+
+
+def test_sources_name_no_jax_import():
+    files = _sources()
+    assert len(files) > 15
+    pat = re.compile(
+        r"^\s*(import|from)\s+(jax|flax|jaxlib|particlemethod_fsi_tpu)(\.|\s|$)",
+        re.M)
+    for f in files:
+        with open(f) as fh:
+            text = fh.read()
+        assert not pat.search(text), f
+
+
+def test_kernel_sources_and_loader_need_no_compiler_at_import():
+    """The build happens at first launch, not at import; with no nvcc the
+    loader raises (it never falls back)."""
+    from particlemethod_fsi_tpu_torch.ops import cuda_loader
+
+    cu = sorted(p.name for p in cuda_loader.CSRC_DIR.glob("*.cu"))
+    assert cu == ["phase1_sweep.cu", "phase2_sweep.cu"]
+    for p in cuda_loader.CSRC_DIR.glob("*.cu"):
+        text = p.read_text()
+        assert 'extern "C"' in text and "torch/" not in text
+    assert "-use_fast_math" not in " ".join(cuda_loader.NVCC_FLAGS)
+    assert "arch=compute_90a,code=sm_90a" in cuda_loader.NVCC_FLAGS
+    try:
+        cuda_loader._find_nvcc()
+    except RuntimeError:
+        with pytest.raises(RuntimeError):
+            cuda_loader.load()
