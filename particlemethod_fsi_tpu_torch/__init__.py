@@ -7,8 +7,11 @@ This package imports ``torch`` and never ``jax`` nor anything of the JAX
 package.  Ported so far: the one-device window-sweep path of the coupled
 2-D step (sorted frame, window tables, phase-1 and phase-2 sweeps as
 hand-written CUDA kernels under ``csrc/``, EOS, elastic solid, C8 frame
-reuse) and the bench scene.  Entry points run on the GPU unless the caller
-passes ``device="cpu"``.
+reuse, divergence-guarded chunk), the output-time diagnostics with the
+virial sweep (a third CUDA kernel), the file formats, the generator and the
+command line (``python -m particlemethod_fsi_tpu_torch.cli``), and the bench
+scene.  Entry points run on the GPU unless the caller passes
+``device="cpu"`` (``--device cpu`` on the command line).
 """
 
 from particlemethod_fsi_tpu_torch.config import (

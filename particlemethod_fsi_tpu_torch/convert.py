@@ -148,3 +148,20 @@ def solid_static_from_numpy(d: dict, *, dtype: torch.dtype,
         gather_idx=_as(np.minimum(s_idx, n_full - 1), torch.int64, device),
         n_struct=n_s,
     )
+
+
+def diagnostics_from_numpy(d: dict) -> dict:
+    """A JAX ``Simulation.diagnostics`` dict -> plain numpy arrays under the
+    same keys, as the port's ``Simulation.diagnostics`` returns them."""
+    return {k: np.array(v) for k, v in d.items()}
+
+
+def checkpoint_state_from_numpy(d: dict, *, dtype: torch.dtype,
+                                device="cpu") -> ParticleState:
+    """The arrays of a checkpoint ``.npz`` written by either package (as a
+    dict of numpy arrays: ``dict(np.load(path))``) -> the port's
+    ParticleState; what ``utils.checkpoint.load_checkpoint`` gives for the
+    same file."""
+    return state_from_numpy(
+        {k: d[k] for k in ("prop", "pos", "pos0", "vel", "wall_center", "time")},
+        dtype=dtype, device=device)

@@ -1,0 +1,321 @@
+// Virial window sweep: per receiver, the pairwise force families re-derived
+// with the RECEIVER's pressure only (P_i, not P_i + P_j), viscosity
+// half-weighted, accumulated as sum_j f_a * xij_b into nine components
+// (calculateVirialStressAtParticle, src/main.cpp:3077-3318).  Runs once per
+// .vtk dump (output-time diagnostics), not in the time step.
+//
+// Replaces the TPU kernel particlemethod_fsi_tpu/ops/pallas_windows_t.py
+// `_virial_kernel_t` (reached through `virial_pallas_t` -> `_sweep_t`).
+// Every branch of that kernel is here: planar or not and surface tension or
+// not as template parameters; per-pair interaction ratios and non-uniform
+// radii as launch parameters (uniform branches).  Unlike phase 2 there is no
+// structure rule: a structure receiver takes every family from every sender.
+// The output is the raw sums, [9, N] row-major components (3a + b) in sorted
+// order; the division by the particle volume and the trace pressure stay in
+// the caller.  A planar instance keeps four accumulators (rows 0, 1, 3, 4)
+// and writes zeros to the other five.
+//
+// Bound on an H100: at the flags of the planar scene without surface tension
+// the function needs 44 bytes a particle in float32 (x, y, vx, vy, pressure
+// P, 1/mu and the key read once, four components written), some thirteen
+// microseconds at 1M particles; the pair math of the true neighbour pairs
+// needs less time than that at the float32 rate, so by the roofline the
+// kernel is bound by bytes.  As written it moves more (pos and vel staged as
+// [N,3] rows, nine rows written).  Like its siblings this simple design is
+// far from that bound: a receiver tests every sender of its block's windows,
+// an order of magnitude more candidates than neighbours, and that candidate
+// loop is where the time goes.  Sender tiles are staged once per block in
+// shared memory and read as broadcasts, the ring and squared-radius tests
+// come before the rsqrt, constants are folded on the host.
+#include "window_sweep.cuh"
+
+// the constant table of phase 2 (the two kernels share `_phase2_consts`)
+enum {
+  VR_RADIUS_P2 = 0, VR_RADIUS_A2, VR_RADIUS_V2, VR_RADIUS_G2,
+  VR_INV_RADIUS_P, VR_INV_RADIUS_A, VR_INV_RADIUS_V, VR_INV_RADIUS_G,
+  VR_DWP_COEF, VR_NORM_A, VR_RADIUS_A, VR_DWV_COEF, VR_NORM_G, VR_DWG_COEF,
+  VR_C_V, VR_VOLUME, VR_SCALE_DI, VR_COF_K2, VR_NCONST
+};
+
+template <typename T>
+struct VirialParams {
+  const T* pos;         // [N,3]
+  const T* vel;         // [N,3]
+  const int* key;       // [N]
+  const int* prop;      // [N]
+  const T* pp;          // [N] pressure P (receiver side only)
+  const T* pa;          // [N] pressure A (receiver side, surface tension only)
+  const T* gc;          // [N,3] gravity centre (receiver side, surface tension)
+  const T* invmu;       // [N] 1/mu, inf where mu == 0
+  const int* win_start; // [nblocks, n_off]
+  const int* win_len;   // [nblocks, n_off]
+  T* out;               // [9, N]
+  int n;
+  int n_off;
+  int offs[FSI_MAX_OFFS];
+  T c[VR_NCONST];
+  T ratio[FSI_TYPE_COUNT * FSI_TYPE_COUNT];
+  T cof_a[FSI_TYPE_COUNT];
+  int uniform_ratio;
+  int uniform_radii;
+};
+
+template <typename T, bool PLANAR, bool ST>
+__global__ void virial_sweep_kernel(const VirialParams<T> p) {
+  __shared__ T s_pos[FSI_TILE * 3];
+  __shared__ T s_vel[FSI_TILE * 3];
+  __shared__ T s_invmu[FSI_TILE];
+  __shared__ int s_key[FSI_TILE];
+  __shared__ int s_prop[ST ? FSI_TILE : 1];
+  __shared__ T s_ratio[FSI_TYPE_COUNT * FSI_TYPE_COUNT];
+
+  const int b = blockIdx.x;
+  const int i = b * blockDim.x + threadIdx.x;  // n is a multiple of blockDim.x
+  const bool with_ratio = ST && !p.uniform_ratio;
+  if (with_ratio) {
+    for (int t = threadIdx.x; t < FSI_TYPE_COUNT * FSI_TYPE_COUNT; t += blockDim.x)
+      s_ratio[t] = p.ratio[t];
+  }
+
+  const T xi = p.pos[3 * i], yi = p.pos[3 * i + 1], zi = p.pos[3 * i + 2];
+  const T vxi = p.vel[3 * i], vyi = p.vel[3 * i + 1], vzi = p.vel[3 * i + 2];
+  const int key_i = p.key[i];
+  const int type_i = fsi_clip_type(p.prop[i]);
+  const T pp_i = p.pp[i];
+  const T invmu_i = p.invmu[i];
+  T pa_i = 0, gcx_i = 0, gcy_i = 0, gcz_i = 0, a_i = 0;
+  if (ST) {
+    pa_i = p.pa[i];
+    gcx_i = p.gc[3 * i];
+    gcy_i = p.gc[3 * i + 1];
+    gcz_i = p.gc[3 * i + 2];
+    a_i = p.cof_a[type_i] * p.c[VR_COF_K2];
+  }
+
+  T reach2 = p.c[VR_RADIUS_P2];
+  if (!p.uniform_radii) {
+    reach2 = max(reach2, p.c[VR_RADIUS_V2]);
+    if (ST) reach2 = max(reach2, max(p.c[VR_RADIUS_A2], p.c[VR_RADIUS_G2]));
+  }
+  const T volume = p.c[VR_VOLUME];
+  const T scale_di = p.c[VR_SCALE_DI];
+
+  // s<a><b> = sum_j f_a * xij_b
+  T sxx = 0, sxy = 0, syx = 0, syy = 0;
+  T sxz = 0, syz = 0, szx = 0, szy = 0, szz = 0;
+
+  for (int o = 0; o < p.n_off; ++o) {
+    const int start = p.win_start[b * p.n_off + o];
+    const int len = p.win_len[b * p.n_off + o];
+    const int ring_centre = key_i + p.offs[o];
+    for (int t0 = 0; t0 < len; t0 += FSI_TILE) {
+      const int cnt = min(FSI_TILE, len - t0);
+      const int row0 = start + t0;
+      __syncthreads();  // the previous tile is consumed
+      fsi_stage(s_pos, p.pos + 3 * (size_t)row0, 3 * cnt);
+      fsi_stage(s_vel, p.vel + 3 * (size_t)row0, 3 * cnt);
+      fsi_stage(s_invmu, p.invmu + row0, cnt);
+      fsi_stage(s_key, p.key + row0, cnt);
+      if (ST) fsi_stage(s_prop, p.prop + row0, cnt);
+      __syncthreads();
+
+      for (int j = 0; j < cnt; ++j) {
+        const int dk = s_key[j] - ring_centre;
+        if (dk < -1 || dk > 1) continue;
+        const T dx = s_pos[3 * j] - xi;
+        const T dy = s_pos[3 * j + 1] - yi;
+        T rij2 = dx * dx + dy * dy;
+        T dz = 0;
+        if (!PLANAR) {
+          dz = s_pos[3 * j + 2] - zi;
+          rij2 += dz * dz;
+        }
+        // every family mask is the strict radius^2 - rij2 > 0
+        if (!(rij2 > T(0)) || !(rij2 < reach2)) continue;
+        const T inv_r = fsi_rsqrt(rij2);
+        const T rij = rij2 * inv_r;
+        const T ex = dx * inv_r, ey = dy * inv_r;
+        const T ez = PLANAR ? T(0) : dz * inv_r;
+
+        T ratio_ij = 1;
+        if (with_ratio) ratio_ij = fsi_ratio(s_ratio, type_i, s_prop[j]);
+
+        // pressureP family: the receiver's pressure only
+        const bool m_p = p.c[VR_RADIUS_P2] - rij2 > T(0);
+        const T q_p = rij * p.c[VR_INV_RADIUS_P];
+        const T omq_p = T(1) - q_p;
+        T coeff = 0;
+        if (m_p) coeff = pp_i * (p.c[VR_DWP_COEF] * omq_p) * volume;
+
+        // pressureA family; exactly zero without surface tension
+        if (ST) {
+          bool m_a = m_p;
+          T q_a = q_p, omq_a = omq_p;
+          if (!p.uniform_radii) {
+            m_a = p.c[VR_RADIUS_A2] - rij2 > T(0);
+            q_a = rij * p.c[VR_INV_RADIUS_A];
+            omq_a = T(1) - q_a;
+          }
+          if (m_a) {
+            const T dwa = p.c[VR_NORM_A] * omq_a * (T(1) - T(3) * q_a) /
+                          p.c[VR_RADIUS_A];
+            coeff += pa_i * ratio_ij * dwa * volume;
+          }
+        }
+
+        // viscosity, half-weighted; mu_h = 0 unless 1/mu_i + 1/mu_j is
+        // finite and positive
+        {
+          bool m_v = m_p;
+          T omq_v = omq_p;
+          if (!p.uniform_radii) {
+            m_v = p.c[VR_RADIUS_V2] - rij2 > T(0);
+            omq_v = T(1) - rij * p.c[VR_INV_RADIUS_V];
+          }
+          if (m_v) {
+            T udote = (s_vel[3 * j] - vxi) * ex + (s_vel[3 * j + 1] - vyi) * ey;
+            if (!PLANAR) udote += (s_vel[3 * j + 2] - vzi) * ez;
+            const T inv_sum = invmu_i + s_invmu[j];
+            const T mu_h =
+                (isfinite(inv_sum) && inv_sum > T(0)) ? T(2) / inv_sum : T(0);
+            const T dwv = p.c[VR_DWV_COEF] * omq_v;
+            const T visc = p.c[VR_C_V] * mu_h * udote * (-dwv) * inv_r * volume;
+            coeff += T(0.5) * visc;
+          }
+        }
+
+        // diffuse interface; zero without surface tension
+        T w_g1 = 0;
+        if (ST) {
+          bool m_g = m_p;
+          T omq_g = omq_p;
+          if (!p.uniform_radii) {
+            m_g = p.c[VR_RADIUS_G2] - rij2 > T(0);
+            omq_g = T(1) - rij * p.c[VR_INV_RADIUS_G];
+          }
+          if (m_g) {
+            const T wgv = p.c[VR_NORM_G] * (omq_g * omq_g);
+            const T dwg = p.c[VR_DWG_COEF] * omq_g;
+            T gr = -(gcx_i * dx + gcy_i * dy);
+            if (!PLANAR) gr -= gcz_i * dz;
+            coeff += -a_i * gr * ratio_ij * dwg * scale_di;
+            w_g1 = a_i * ratio_ij * wgv * scale_di;
+          }
+        }
+
+        T fx = coeff * ex, fy = coeff * ey;
+        if (ST) {
+          fx += w_g1 * gcx_i;
+          fy += w_g1 * gcy_i;
+        }
+        sxx += fx * dx;
+        sxy += fx * dy;
+        syx += fy * dx;
+        syy += fy * dy;
+        if (!PLANAR) {
+          T fz = coeff * ez;
+          if (ST) fz += w_g1 * gcz_i;
+          sxz += fx * dz;
+          syz += fy * dz;
+          szx += fz * dx;
+          szy += fz * dy;
+          szz += fz * dz;
+        }
+      }
+    }
+  }
+
+  const size_t n = p.n;
+  p.out[i] = sxx;
+  p.out[n + i] = sxy;
+  p.out[2 * n + i] = sxz;
+  p.out[3 * n + i] = syx;
+  p.out[4 * n + i] = syy;
+  p.out[5 * n + i] = syz;
+  p.out[6 * n + i] = szx;
+  p.out[7 * n + i] = szy;
+  p.out[8 * n + i] = szz;
+}
+
+template <typename T>
+static int launch_virial(const void* pos, const void* vel, const void* key,
+                         const void* prop, const void* pp, const void* pa,
+                         const void* gc, const void* invmu,
+                         const void* win_start, const void* win_len, void* out,
+                         int n, int block, int n_off, const int* offs,
+                         const double* consts, const double* ratio,
+                         const double* cof_a, int planar, int surface_tension,
+                         int uniform_ratio, int uniform_radii,
+                         cudaStream_t stream) {
+  VirialParams<T> p;
+  p.pos = static_cast<const T*>(pos);
+  p.vel = static_cast<const T*>(vel);
+  p.key = static_cast<const int*>(key);
+  p.prop = static_cast<const int*>(prop);
+  p.pp = static_cast<const T*>(pp);
+  p.pa = static_cast<const T*>(pa);
+  p.gc = static_cast<const T*>(gc);
+  p.invmu = static_cast<const T*>(invmu);
+  p.win_start = static_cast<const int*>(win_start);
+  p.win_len = static_cast<const int*>(win_len);
+  p.out = static_cast<T*>(out);
+  p.n = n;
+  p.n_off = n_off;
+  for (int o = 0; o < n_off; ++o) p.offs[o] = offs[o];
+  for (int k = 0; k < VR_NCONST; ++k) p.c[k] = static_cast<T>(consts[k]);
+  for (int k = 0; k < FSI_TYPE_COUNT * FSI_TYPE_COUNT; ++k)
+    p.ratio[k] = static_cast<T>(ratio[k]);
+  for (int k = 0; k < FSI_TYPE_COUNT; ++k) p.cof_a[k] = static_cast<T>(cof_a[k]);
+  p.uniform_ratio = uniform_ratio;
+  p.uniform_radii = uniform_radii;
+
+  const dim3 grid(n / block), threads(block);
+  if (planar) {
+    if (surface_tension)
+      virial_sweep_kernel<T, true, true><<<grid, threads, 0, stream>>>(p);
+    else
+      virial_sweep_kernel<T, true, false><<<grid, threads, 0, stream>>>(p);
+  } else {
+    if (surface_tension)
+      virial_sweep_kernel<T, false, true><<<grid, threads, 0, stream>>>(p);
+    else
+      virial_sweep_kernel<T, false, false><<<grid, threads, 0, stream>>>(p);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Plain C entry point, with the argument list of fsi_phase2_sweep.
+// is_double selects the instance; all pointers are device pointers except
+// offs, consts (VR_NCONST doubles), ratio (36 doubles) and cof_a (6 doubles),
+// which are host arrays.  pa and gc may be null without surface tension.
+// Returns cudaGetLastError() of the launch (0 = success), or -1 for
+// arguments the kernel does not take.
+extern "C" int fsi_virial_sweep(int is_double, const void* pos,
+                                const void* vel, const void* key,
+                                const void* prop, const void* pp,
+                                const void* pa, const void* gc,
+                                const void* invmu, const void* win_start,
+                                const void* win_len, void* out, int n,
+                                int block, int n_off, const int* offs,
+                                const double* consts, const double* ratio,
+                                const double* cof_a, int planar,
+                                int surface_tension, int uniform_ratio,
+                                int uniform_radii, void* stream) {
+  if (block <= 0 || block > 1024 || n % block != 0 || n_off <= 0 ||
+      n_off > FSI_MAX_OFFS)
+    return -1;
+  if (surface_tension && (pa == nullptr || gc == nullptr)) return -1;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_double)
+    return launch_virial<double>(pos, vel, key, prop, pp, pa, gc, invmu,
+                                 win_start, win_len, out, n, block, n_off,
+                                 offs, consts, ratio, cof_a, planar,
+                                 surface_tension, uniform_ratio, uniform_radii,
+                                 s);
+  return launch_virial<float>(pos, vel, key, prop, pp, pa, gc, invmu,
+                              win_start, win_len, out, n, block, n_off, offs,
+                              consts, ratio, cof_a, planar, surface_tension,
+                              uniform_ratio, uniform_radii, s);
+}
+
+extern "C" int fsi_virial_nconst() { return VR_NCONST; }

@@ -2,12 +2,17 @@
 
 Counterpart of ``particlemethod_fsi_tpu/generator.py`` (itself a
 re-implementation of the reference's generator executable,
-``generator/generator.cpp``).  Ported: :class:`Primitive`, :class:`BoidScene`
-and :func:`generate_grid` with all six primitives.  The ``.boid`` text parser,
-the ``.grid`` writer and the ``main()`` command line are not ported yet.
+``generator/generator.cpp``): :class:`Primitive`, :class:`BoidScene`,
+:func:`parse_boid_file`, :func:`generate_grid` with all six primitives,
+:func:`generate_case` and the ``main()`` command line
+(``python -m particlemethod_fsi_tpu_torch.generator <case>`` reads
+``<case>.boid`` and writes ``<case>.grid``).
 
 Behavioral contract (identical to the JAX package's generator):
 
+* ``.boid`` grammar: global ``ParticleDistance`` / ``LowerDomain`` /
+  ``UpperDomain`` plus ``Start<Primitive>..End<Primitive>`` blocks
+  (generator.cpp:128-184) for the six primitives.
 * lattice: per-axis count = round(extent/spacing); effective spacing =
   extent/count; offset 0.5*spacing (Cuboid/Cyboid) or 0.01*spacing (the "2"
   variants and Recboid, x/y only) (generator.cpp:654-835).  Loop order is
@@ -29,7 +34,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-from particlemethod_fsi_tpu_torch.io.grid_file import GridData
+from particlemethod_fsi_tpu_torch.io.grid_file import GridData, write_grid_file
 
 
 @dataclass
@@ -55,6 +60,76 @@ class BoidScene:
 
 
 _PRIMITIVES = ("Cuboid", "Cuboid2", "Cyboid", "Cyboid2", "Recboid", "Recboid2")
+# Longest-name-first for Start/End token matching ("StartCuboid2" contains "StartCuboid")
+_PRIM_MATCH_ORDER = sorted(_PRIMITIVES, key=len, reverse=True)
+
+
+def parse_boid_file(path_or_text, *, is_text: bool = False) -> BoidScene:
+    if is_text:
+        text = str(path_or_text)
+    else:
+        with open(path_or_text) as f:
+            text = f.read()
+    # the reference tokenizes with fscanf(%s) inside blocks; comments (#) only
+    # apply at line level outside blocks (generator.cpp:134-137)
+    tokens: list[str] = []
+    for line in text.splitlines():
+        if line.lstrip().startswith("#"):
+            continue
+        tokens.extend(line.split())
+
+    scene = BoidScene(particle_distance=-1.0, lower_domain=(0, 0, 0), upper_domain=(0, 0, 0))
+    i = 0
+
+    def take_floats(n):
+        nonlocal i
+        vals = tuple(float(tokens[i + k]) for k in range(n))
+        i += n
+        return vals
+
+    while i < len(tokens):
+        tok = tokens[i]
+        i += 1
+        if tok == "ParticleDistance":
+            scene.particle_distance = take_floats(1)[0]
+        elif tok == "LowerDomain":
+            scene.lower_domain = take_floats(3)
+        elif tok == "UpperDomain":
+            scene.upper_domain = take_floats(3)
+        else:
+            kind = next(
+                (p for p in _PRIM_MATCH_ORDER if tok == f"Start{p}"), None
+            )
+            if kind is None:
+                continue
+            prim = Primitive(kind=kind)
+            end = f"End{kind}"
+            while i < len(tokens) and tokens[i] != end:
+                key = tokens[i]
+                i += 1
+                if key == "Spacing":
+                    prim.spacing = take_floats(1)[0]
+                elif key == "Type":
+                    prim.type = int(tokens[i]); i += 1
+                elif key == "RigidType":
+                    prim.rigid_type = int(tokens[i]); i += 1
+                elif key == "Lower":
+                    prim.lower = take_floats(3)
+                elif key == "Upper":
+                    prim.upper = take_floats(3)
+                elif key == "Velocity":
+                    prim.velocity = take_floats(3)
+                elif key == "Enthalpy":
+                    prim.enthalpy = take_floats(1)[0]
+                elif key == "Ratio":
+                    prim.ratio = take_floats(1)[0]
+                elif key == "Angle":
+                    prim.angle = take_floats(1)[0]
+                else:
+                    raise ValueError(f"no such indication in {kind}: {key!r}")
+            i += 1  # skip End token
+            scene.primitives.append(prim)
+    return scene
 
 
 def _axis_lattice(lo: float, hi: float, space: float, offset: float) -> np.ndarray:
@@ -165,3 +240,25 @@ def generate_grid(scene: BoidScene) -> GridData:
         initial_position=pos.copy(),
         velocity=vel,
     )
+
+
+def generate_case(case_path: str) -> GridData:
+    """CLI contract of the reference generator: ``GeneratorForMph <case>``
+    reads ``<case>.boid`` and writes ``<case>.grid`` (generator.cpp:116-126)."""
+    scene = parse_boid_file(f"{case_path}.boid")
+    grid = generate_grid(scene)
+    write_grid_file(grid, f"{case_path}.grid", generator_style=True)
+    return grid
+
+
+def main(argv=None):
+    import sys
+
+    argv = sys.argv[1:] if argv is None else argv
+    case = argv[0] if argv else "sample"
+    grid = generate_case(case)
+    print(f"{grid.n} particles were generated")
+
+
+if __name__ == "__main__":
+    main()

@@ -105,6 +105,11 @@ def _declare(lib: ctypes.CDLL) -> None:
         ci, ci, ci, ip, dp, dp, dp,  # n block n_off offs consts ratio cof_a
         ci, ci, ci, ci, vp,  # planar st uniform_ratio uniform_radii stream
     ]
+    # the virial sweep takes the argument list of phase 2
+    lib.fsi_virial_sweep.restype = ci
+    lib.fsi_virial_sweep.argtypes = list(lib.fsi_phase2_sweep.argtypes)
+    lib.fsi_virial_nconst.restype = ci
+    lib.fsi_virial_nconst.argtypes = []
     lib.fsi_phase1_nconst.restype = ci
     lib.fsi_phase1_nconst.argtypes = []
     lib.fsi_phase2_nconst.restype = ci

@@ -11,9 +11,9 @@ here                           there
 ``phase2_sweep`` (+ kernel)    ``_phase2_kernel`` via ``_sweep_t``
 ``phase2_forces_t``            ``phase2_forces_pallas_t``
 ``inverse_viscosity``          the ``invmu`` lane of ``pack_phase2_t``
+``virial_sweep`` (+ kernel)    ``_virial_kernel_t`` via ``_sweep_t``
+``virial_t``                   ``virial_pallas_t``
 =============================  ==========================================
-
-The virial kernel (``virial_pallas_t``) is not ported yet.
 
 What the TPU layout forced and this port drops: the field-major
 ``[W, N + wmax]`` packing (the kernels read the frame's own tensors, so
@@ -25,7 +25,7 @@ and the double buffer.  What stays: the inputs (sorted frame, ``win_start`` /
 in sorted order, every mask and every formula.
 
 Each sweep has three pieces in this module: the wrapper (``phase1_sweep``,
-``phase2_sweep``), which launches the CUDA kernel for a CUDA tensor -- or
+``phase2_sweep``, ``virial_sweep``), which launches the CUDA kernel for a CUDA tensor -- or
 raises -- and takes the plain version only for a CPU tensor; the plain
 PyTorch version (``*_plain``), which is what the CPU tests run and what the
 kernel is held against on the card; and a launch count in
@@ -33,12 +33,13 @@ kernel is held against on the card; and a launch count in
 else.
 
 Bound on an H100: by the roofline count (each input read once, each output
-written once, against the pair math of the true neighbour pairs only) both
-sweeps are bound by bytes, some tens of bytes a particle.  The simple design
+written once, against the pair math of the true neighbour pairs only) all
+three sweeps are bound by bytes, some tens of bytes a particle.  The simple design
 here does not reach that bound: every receiver tests every sender of its
 block's windows (an order of magnitude more candidates than neighbours), so
 its time goes to shared-memory reads and the ring and radius tests.  See the
-notes in ``csrc/phase1_sweep.cu`` and ``csrc/phase2_sweep.cu``; the measured
+notes in ``csrc/phase1_sweep.cu``, ``csrc/phase2_sweep.cu`` and
+``csrc/virial_sweep.cu``; the measured
 times stand in ``PERF.md``.
 """
 
@@ -61,7 +62,7 @@ from particlemethod_fsi_tpu_torch.ops.windows import (
 )
 
 # kernel launches per wrapper (plain ints; the plain versions never count)
-launch_counts = {"phase1_sweep": 0, "phase2_sweep": 0}
+launch_counts = {"phase1_sweep": 0, "phase2_sweep": 0, "virial_sweep": 0}
 
 # rows of phase1_sweep's output
 P1_DA, P1_GX, P1_GY, P1_GZ, P1_WP, P1_DIV, P1_COUNT = range(7)
@@ -563,3 +564,186 @@ def phase2_forces_t(frame: SortedFrame, fields: dict, grid: CellGrid,
         inverse_viscosity(fields["mu"]), win_start, win_len, offs, ks, cfg,
         tables, volume=volume, two_dimensional=two_dimensional)
     return out.T
+
+
+# ---------------------------------------------------------------------------
+# virial (output-time diagnostics)
+# ---------------------------------------------------------------------------
+
+
+def virial_sweep_plain(frame: SortedFrame, pp, pa, gc, invmu, win_start,
+                       win_len, offs, ks: KernelSet, cfg: WindowConfig,
+                       tables: TypeTables, *, volume: float,
+                       two_dimensional: bool):
+    """Plain PyTorch version of the virial sweep (the arithmetic of the JAX
+    ``_virial_kernel_t``): the force families with the receiver's pressure
+    only and viscosity half-weighted, summed as ``f_a * xij_b``.  ``gc`` is
+    ``[N, 3]``; ``pa`` and ``gc`` are read with surface tension only.
+    Returns the raw sums ``[9, N]`` (component ``3 a + b``); a planar case
+    leaves every row with a z index zero."""
+    n = frame.pos.shape[0]
+    dtype, dev = frame.pos.dtype, frame.pos.device
+    out = torch.zeros((9, n), dtype=dtype, device=dev)
+    st = cfg.surface_tension
+    with_ratio = st and not cfg.uniform_ratio
+    (rp2, ra2, rv2, rg2, inv_rp, inv_ra, inv_rv, inv_rg, dwp_coef, norm_a,
+     radius_a, dwv_coef, norm_g, dwg_coef, c_v, volume, scale_di,
+     cof_k2) = _phase2_consts(ks, volume, two_dimensional)
+    type_all = torch.clamp(frame.prop, 0, TYPE_COUNT - 1)
+    for r0, r1, nb, off, idx, lane_valid in _window_slabs(
+            frame, win_start, win_len, offs, cfg.block):
+        m, (dx, dy, dz), rij2, inv_r, rij = _pair_geometry(
+            frame, r0, r1, nb, off, idx, lane_valid, cfg.planar)
+        acc = out[:, r0:r1].view(9, nb, -1)
+        zero = torch.zeros_like(rij)
+        xij = [dx, dy] if cfg.planar else [dx, dy, dz]
+        eij = [d * inv_r for d in xij]
+        if with_ratio:
+            ratio_ij, _ = _pair_ratios(
+                tables.interaction_ratio, type_all[r0:r1].view(nb, -1, 1),
+                frame.prop[idx][:, None, :])
+        else:
+            ratio_ij = 1.0
+
+        # pressureP family: the receiver's pressure only, and no structure
+        # rule (phase 2 has one, the virial does not)
+        m_p = m & (rp2 - rij2 > 0)
+        q_p = rij * inv_rp
+        omq_p = 1.0 - q_p
+        dwp = dwp_coef * omq_p
+        pp_i = pp[r0:r1].view(nb, -1, 1)
+        coeff = torch.where(m_p, pp_i * dwp * volume, zero)
+
+        if st:
+            # pressureA family
+            if cfg.uniform_radii:
+                m_a, q_a, omq_a = m_p, q_p, omq_p
+            else:
+                m_a = m & (ra2 - rij2 > 0)
+                q_a = rij * inv_ra
+                omq_a = 1.0 - q_a
+            dwa = norm_a * omq_a * (1.0 - 3.0 * q_a) / radius_a
+            pa_i = pa[r0:r1].view(nb, -1, 1)
+            coeff = coeff + torch.where(
+                m_a, pa_i * ratio_ij * dwa * volume, zero)
+
+        # viscosity, half-weighted; mu_h = 0 unless the inverse sum is
+        # finite and positive
+        if cfg.uniform_radii:
+            m_v, omq_v = m_p, omq_p
+        else:
+            m_v = m & (rv2 - rij2 > 0)
+            omq_v = 1.0 - rij * inv_rv
+        vi = frame.vel[r0:r1].view(nb, -1, 1, 3)
+        vj = frame.vel[idx][:, None, :, :]
+        udote = sum((vj[..., a] - vi[..., a]) * eij[a]
+                    for a in range(len(xij)))
+        inv_sum = invmu[r0:r1].view(nb, -1, 1) + invmu[idx][:, None, :]
+        live = torch.isfinite(inv_sum) & (inv_sum > 0)
+        mu_h = torch.where(
+            live, 2.0 / torch.where(live, inv_sum, torch.ones_like(inv_sum)),
+            zero)
+        dwv = dwv_coef * omq_v
+        visc = c_v * mu_h * udote * (-dwv) * inv_r * volume
+        coeff = coeff + 0.5 * torch.where(m_v, visc, zero)
+
+        # diffuse interface; exactly zero without surface tension
+        w_g1 = gci = None
+        if st:
+            if cfg.uniform_radii:
+                m_g, omq_g = m_p, omq_p
+            else:
+                m_g = m & (rg2 - rij2 > 0)
+                omq_g = 1.0 - rij * inv_rg
+            wgv = norm_g * (omq_g * omq_g)
+            dwg = dwg_coef * omq_g
+            a_i = (tables.cof_a[type_all[r0:r1].long()] * cof_k2).view(nb, -1, 1)
+            gci = gc[r0:r1].view(nb, -1, 1, 3)
+            gr = -sum(gci[..., a] * xij[a] for a in range(len(xij)))
+            coeff = coeff + torch.where(
+                m_g, -a_i * gr * ratio_ij * dwg * scale_di, zero)
+            w_g1 = torch.where(m_g, a_i * ratio_ij * wgv * scale_di, zero)
+
+        for a in range(len(xij)):
+            f_a = coeff * eij[a]
+            if w_g1 is not None:
+                f_a = f_a + w_g1 * gci[..., a]
+            for b in range(len(xij)):
+                acc[3 * a + b] += (f_a * xij[b]).sum(dim=-1)
+    return out
+
+
+def _virial_sweep_cuda(frame, pp, pa, gc, invmu, win_start, win_len, offs, ks,
+                       cfg, tables, volume, two_dimensional):
+    _check_frame(frame, win_start, win_len, len(offs), cfg.block)
+    n = frame.pos.shape[0]
+    dtype, dev = frame.pos.dtype, frame.pos.device
+    _check_tensor("pressure_p", pp, (n,), dtype, dev)
+    _check_tensor("invmu", invmu, (n,), dtype, dev)
+    if cfg.surface_tension:
+        _check_tensor("pressure_a", pa, (n,), dtype, dev)
+        _check_tensor("gravity_center", gc, (n, 3), dtype, dev)
+    lib = cuda_loader.load()
+    consts = _phase2_consts(ks, volume, two_dimensional)
+    if len(consts) != lib.fsi_virial_nconst():
+        raise RuntimeError("virial_sweep: constant table out of step with csrc")
+    out = torch.empty((9, n), dtype=dtype, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.fsi_virial_sweep(
+            int(dtype == torch.float64),
+            frame.pos.data_ptr(), frame.vel.data_ptr(), frame.key.data_ptr(),
+            frame.prop.data_ptr(), pp.data_ptr(),
+            pa.data_ptr() if cfg.surface_tension else None,
+            gc.data_ptr() if cfg.surface_tension else None,
+            invmu.data_ptr(), win_start.data_ptr(), win_len.data_ptr(),
+            out.data_ptr(), n, cfg.block, len(offs), _c_ints(offs),
+            _c_doubles(consts), _c_doubles(tables.interaction_ratio_host),
+            _c_doubles(tables.cof_a_host), int(cfg.planar),
+            int(cfg.surface_tension), int(cfg.uniform_ratio),
+            int(cfg.uniform_radii), stream)
+    _raise_on(err, "virial_sweep")
+    launch_counts["virial_sweep"] += 1
+    return out
+
+
+def virial_sweep(frame: SortedFrame, pp, pa, gc, invmu, win_start, win_len,
+                 offs, ks: KernelSet, cfg: WindowConfig, tables: TypeTables, *,
+                 volume: float, two_dimensional: bool):
+    """Raw virial sums per receiver, ``[9, N]`` in sorted order.
+
+    A CUDA frame goes through the hand-written kernel
+    (``csrc/virial_sweep.cu``, replacing the TPU ``_virial_kernel_t``) or the
+    call raises; only a CPU frame takes :func:`virial_sweep_plain`."""
+    if frame.pos.is_cuda:
+        return _virial_sweep_cuda(frame, pp, pa, gc, invmu, win_start,
+                                  win_len, offs, ks, cfg, tables, volume,
+                                  two_dimensional)
+    return virial_sweep_plain(frame, pp, pa, gc, invmu, win_start, win_len,
+                              offs, ks, cfg, tables, volume=volume,
+                              two_dimensional=two_dimensional)
+
+
+def virial_t(frame: SortedFrame, fields: dict, grid: CellGrid, ks: KernelSet,
+             tables: TypeTables, *, volume: float, two_dimensional: bool,
+             cfg: WindowConfig, windows=None):
+    """Virial stress at every particle (the JAX ``virial_pallas_t``):
+    ``(virial_stress [9, N] row-major components, virial_pressure [N])`` in
+    sorted order.  ``fields`` is the dict of :func:`phase1_fields_t` for the
+    same frame."""
+    win_start, win_len = windows if windows is not None else compute_windows(
+        frame, grid, cfg)
+    offs, _ = row_offsets(grid)
+    gc = fields["gravity_center"]
+    if cfg.surface_tension:
+        gc = gc.contiguous()
+    out = virial_sweep(
+        frame, fields["pressure_p"], fields["pressure_a"], gc,
+        inverse_viscosity(fields["mu"]), win_start, win_len, offs, ks, cfg,
+        tables, volume=volume, two_dimensional=two_dimensional)
+    stress = out / volume
+    d = 2.0 if two_dimensional else 3.0
+    tr = stress[0] + stress[4]
+    if not two_dimensional:
+        tr = tr + stress[8]
+    return stress, -tr / d

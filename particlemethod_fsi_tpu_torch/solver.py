@@ -5,7 +5,10 @@ backend (``pallas_t`` there) on one device.  Ported: ``adjust_domain``,
 ``Simulation.__init__`` (without ghosts, 3-D plane padding and diagnostics),
 ``_is_planar``, ``_initial_structure_neighbors``, ``_force``,
 ``_margin_cached``, ``_init_cache``, ``_force_cached`` (without the ghost
-branches), ``_step_core``, ``step`` and ``run_chunk``.  Sequence of one step
+branches), ``_step_core``, ``step``, ``run_chunk``, ``_chunk_guarded`` /
+``run_chunk_guarded``, ``_diagnostics`` / ``diagnostics`` (the window-sweep
+branch without ghosts) and the module function ``load_case``.  Sequence of
+one step
 (matching src/main.cpp:592-663):
 
   periodic wrap -> frame rebuild or reuse (C8 predicate) -> phase 1
@@ -15,12 +18,13 @@ branches), ``_step_core``, ``step`` and ``run_chunk``.  Sequence of one step
 Not ported yet, and raised for by name rather than run some other way:
 prescribed wall motion and ``Rolling``, the Turek inlet and the Bar initial
 velocity profile, periodic ghosts, 3-D plane padding, frames of 2^24 cells or
-more, the ``pallas`` / ``packed`` / ``gather`` backends, the divergence-guarded
-chunk and the diagnostics.
+more, and the ``pallas`` / ``packed`` / ``gather`` backends.
 
 PyTorch runs eagerly, so where the JAX package traces ``lax.cond`` and
 ``lax.scan`` this module has a Python ``if`` on one device scalar a step (a
-host synchronisation) and a Python loop.  Every op returns new tensors:
+host synchronisation) and a Python loop; the guarded chunk's
+``lax.while_loop`` is a Python loop whose health scalar rides in the same
+host read.  Every op returns new tensors:
 ``step`` and ``run_chunk`` leave their input state intact.
 """
 
@@ -28,11 +32,14 @@ from __future__ import annotations
 
 from typing import Optional
 
+import dataclasses
+import time as _time
+
 import numpy as np
 import torch
 
 from particlemethod_fsi_tpu_torch import state as state_lib
-from particlemethod_fsi_tpu_torch.config import CaseConfig
+from particlemethod_fsi_tpu_torch.config import SCENES, CaseConfig
 from particlemethod_fsi_tpu_torch.io.grid_file import GridData
 from particlemethod_fsi_tpu_torch.ops import fluid as fl
 from particlemethod_fsi_tpu_torch.ops import packed_engine as pk
@@ -43,6 +50,7 @@ from particlemethod_fsi_tpu_torch.ops import windows_t as pwt
 from particlemethod_fsi_tpu_torch.ops.neighbors import CellGrid, build_cell_grid
 from particlemethod_fsi_tpu_torch.ops.smoothing import KernelSet, build_kernels
 from particlemethod_fsi_tpu_torch.state import ParticleState, Segments
+from particlemethod_fsi_tpu_torch.utils.watchdog import sound_speed_bound
 
 
 def resolve_device(device) -> torch.device:
@@ -238,11 +246,18 @@ class Simulation:
                 f"{self._pcfg.block}")
         self._grav_t = self._host_vec(cfg.gravity)
 
+        # the guarded chunk's divergence bound (the CLI watchdog's, squared)
+        self._speed_limit2 = (2.0 * max(sound_speed_bound(cfg), 1.0)) ** 2
+
         self.rebuilds = 0  # frame rebuilds over every run_chunk so far
         self.last_chunk_rebuilds = 0
         # set to a list to record ("name", torch.cuda.Event) marks at the
-        # section ends of every step (chip_smoke.py's breakdown)
+        # section ends of every step and of every diagnostics call
+        # (chip_smoke.py's breakdowns)
         self.profile_events: Optional[list] = None
+        # host seconds of the last diagnostics() call: device work with its
+        # copies to the host, and the numpy tensor assembly
+        self.last_diagnostics_seconds: dict = {}
 
     # ------------------------------------------------------------------
     def _host_vec(self, values) -> torch.Tensor:
@@ -381,7 +396,7 @@ class Simulation:
             rebuilds=0,
         )
 
-    def _force_cached(self, pos, vel, prop, cache: dict):
+    def _force_cached(self, pos, vel, prop, cache: dict, probe=None):
         """Force evaluation under the C8 margin predicate
         (neighborCalculation, src/main.cpp:1472-1494): reuse the cached sort
         permutation + window tables until the displacement set's diameter
@@ -394,7 +409,12 @@ class Simulation:
         The predicate is the DIAMETER of the displacement set, not the max
         displacement: pair validity depends on relative motion only.  The
         branch is a Python ``if`` on one device scalar: one host
-        synchronisation a step."""
+        synchronisation a step.
+
+        ``probe`` (the guarded chunk's squared top speed of the state that
+        this step starts from) is read in that same transfer; where it is
+        not finite or not below the speed bound, nothing is evaluated and
+        ``(None, cache)`` is returned."""
         d = pos - cache["ref_pos"]
         valid_c = (prop >= 0)[:, None]
         big = torch.tensor(1e30, dtype=d.dtype, device=d.device)
@@ -407,7 +427,13 @@ class Simulation:
         half = 0.5 * torch.clamp_min(hi - lo, 0.0)
         disp2 = torch.where(stale, big, torch.sum(half * half))
 
-        if disp2.item() > self._rebuild_thresh2:
+        if probe is None:
+            disp2_host = disp2.item()
+        else:
+            disp2_host, v2 = torch.stack([disp2, probe]).tolist()
+            if not self._healthy(v2):
+                return None, cache
+        if disp2_host > self._rebuild_thresh2:
             frame = pk.sort_frame(pos, vel, prop, self._frame_grid)
             ws, wl_ = pw.compute_windows(frame, self._frame_grid, self._pcfg)
             new_cache = dict(orig=frame.orig, key=frame.key,
@@ -423,9 +449,12 @@ class Simulation:
         self._mark("frame")
         return self._pair_forces(frame, (ws, wl_)), new_cache
 
-    def _step_core(self, state: ParticleState, cache):
+    def _step_core(self, state: ParticleState, cache, probe=None):
         """One full time step (the loop body of main(), src/main.cpp:592-686).
-        ``cache`` is the C8 frame cache (None = rebuild every step)."""
+        ``cache`` is the C8 frame cache (None = rebuild every step).  With a
+        cache, ``probe`` is handed to :meth:`_force_cached`; where that finds
+        the state diverged, the step is not taken and ``(None, cache)`` is
+        returned."""
         cfg = self.cfg
         dt = cfg.dt
         prop = state.prop
@@ -438,7 +467,9 @@ class Simulation:
         if cache is None:
             force = self._force(pos, vel, prop)
         else:
-            force, cache = self._force_cached(pos, vel, prop, cache)
+            force, cache = self._force_cached(pos, vel, prop, cache, probe)
+            if force is None:
+                return None, cache
 
         # velocity kick for fluid + structure (calculateAcceleration,
         # src/main.cpp:2938-2955)
@@ -464,6 +495,13 @@ class Simulation:
 
         return state.replace(pos=pos, vel=vel, time=time + dt), cache
 
+    def apply_initial_velocity_profile(self, state: ParticleState):
+        """The scene's initial velocity profile (``bar_first_mode`` of the
+        JAX package); it comes with the scene-modules slice."""
+        raise NotImplementedError(
+            "apply_initial_velocity_profile (the 'bar_first_mode' profile) "
+            "is not ported yet (scene-modules slice)")
+
     # ------------------------------------------------------------------
     def step(self, state: ParticleState) -> ParticleState:
         """One step with a fresh frame; the input state is left intact."""
@@ -483,3 +521,203 @@ class Simulation:
         self.last_chunk_rebuilds = done
         self.rebuilds += done
         return state
+
+    # ------------------------------------------------------------------
+    def _healthy(self, v2: float) -> bool:
+        return bool(np.isfinite(v2)) and v2 < self._speed_limit2
+
+    @staticmethod
+    def _top_speed2(state: ParticleState, invalid=None) -> torch.Tensor:
+        """Largest squared speed over the valid particles (NaN if any is).
+        ``invalid`` is ``state.prop < 0`` where the caller has it already."""
+        if invalid is None:
+            invalid = state.prop < 0
+        v2 = torch.sum(state.vel * state.vel, dim=1)
+        return v2.masked_fill(invalid, 0.0).max()
+
+    def run_chunk_guarded(self, state: ParticleState, n_steps: int):
+        """Chunk with an in-loop divergence guard: stop stepping the moment
+        any valid particle's speed goes non-finite or past the watchdog
+        sound-speed bound (``_chunk_guarded`` of the JAX package, a
+        ``lax.while_loop`` there).  Returns ``(state, steps_done, healthy)``;
+        on divergence the state is the FIRST bad state, it is never stepped
+        again, and ``steps_done`` counts the bad step.
+
+        With a rebuild margin the step already reads one device scalar a
+        step (the C8 predicate); the health scalar of the state a step
+        starts from is read in that same transfer, so the guard adds one
+        small reduction a step and one host read a chunk (for the last
+        state).  Without a margin there is no such read and the guard makes
+        its own, once a step."""
+        cache = self._init_cache(state) if self._margin_cached else None
+        done, healthy = 0, True
+        with torch.no_grad():
+            invalid = state.prop < 0  # types do not change inside a chunk
+            probe = None  # the entry state is not judged, as in the JAX loop
+            while done < n_steps:
+                nxt, cache = self._step_core(state, cache, probe)
+                if nxt is None:  # `state`, the result of step `done`, is bad
+                    healthy = False
+                    break
+                state, done = nxt, done + 1
+                probe = self._top_speed2(state, invalid)
+                if cache is None and not self._healthy(probe.item()):
+                    healthy = False
+                    break
+            if healthy and cache is not None and probe is not None:
+                healthy = self._healthy(probe.item())
+        rebuilds = cache["rebuilds"] if cache is not None else done
+        self.last_chunk_rebuilds = rebuilds
+        self.rebuilds += rebuilds
+        return state, done, healthy
+
+    # ------------------------------------------------------------------
+    def _diagnostics(self, state: ParticleState) -> dict:
+        """Output-time field recomputation (VTK fields + virial stress,
+        src/main.cpp:984-1189, 3077-3318) on the device: a fresh frame and
+        fresh windows (never the C8 cache, so every field is in one frame's
+        order), phase 1 with the neighbour count, phase 2, the virial sweep,
+        then one scatter back to slot order.
+
+        Tensor outputs come in memory-friendly layouts -- solid tensors in
+        compact subset space [S, sd, sd], virial components [9, N] -- and
+        are assembled on the host by :meth:`diagnostics`."""
+        cfg = self.cfg
+        prop, pos, vel = state.prop, state.pos, state.vel
+        fgrid, pcfg = self._frame_grid, self._pcfg
+        self._mark("begin")
+        frame = pk.sort_frame(pos, vel, prop, fgrid)
+        windows = pw.compute_windows(frame, fgrid, pcfg)
+        self._mark("frame")
+        f1 = pwt.phase1_fields_t(frame, fgrid, self.kernels, self.tables,
+                                 cfg=pcfg, windows=windows, count=True)
+        self._mark("phase1")
+        force_s = pwt.phase2_forces_t(
+            frame, f1, fgrid, self.kernels, self.tables, volume=self.volume,
+            two_dimensional=cfg.two_dimensional, cfg=pcfg, windows=windows)
+        self._mark("phase2")
+        virial_s, vp_s = pwt.virial_t(
+            frame, f1, fgrid, self.kernels, self.tables, volume=self.volume,
+            two_dimensional=cfg.two_dimensional, cfg=pcfg, windows=windows)
+        self._mark("virial")
+        # true max cell occupancy (the window sweep consults no cell
+        # capacity; the metric stays commensurate with the other engines')
+        edges = torch.searchsorted(
+            frame.key, torch.arange(fgrid.num_cells + 1, dtype=torch.int32,
+                                    device=self.device))
+        cell_overflow = (edges[1:] - edges[:-1]).max().to(torch.int32)
+
+        # back to slot order: all rows in one scatter by the permutation
+        rows = torch.cat([
+            force_s.T, f1["pressure_p"][None], f1["pressure_a"][None],
+            f1["vol_strain"][None], f1["density_a"][None],
+            f1["divergence"][None], f1["gravity_center"].T,
+            f1["neighbor_count"].to(self.dtype)[None], vp_s[None], virial_s,
+        ])
+        slot = torch.empty_like(rows)
+        slot[:, frame.orig] = rows
+        force = slot[0:3].T
+        pp, pa, vs, da = slot[3], slot[4], slot[5], slot[6]
+        gc, nbr_count, vp, virial_rows = slot[8:11].T, slot[11], slot[12], slot[13:22]
+        self._mark("unsort")
+
+        f = sl.deformation_gradient_subset(
+            pos[self.solid.gather_idx], self.solid, self._width_t)
+        strain, stress = sl.stvk_stress(f, self.solid.lam, self.solid.mu)
+        seg = Segments(prop)
+        mass = self.tables.density[torch.clamp(prop, 0, 5).long()] * self.volume
+        zero = torch.zeros((), dtype=self.dtype, device=self.device)
+        fs = seg.fluid | seg.structure
+        force = force + torch.where(
+            fs[:, None], mass[:, None] * self._grav_t, zero)
+        accel = torch.where(
+            seg.fluid[:, None],
+            force / torch.where(mass > 0, mass, torch.ones_like(mass))[:, None],
+            zero)
+        out = dict(
+            force=force,
+            accel=accel,
+            strain_subset=strain,
+            stress_subset=stress,
+            deform_subset=f,
+            pressure_p=pp,
+            pressure_a=pa,
+            vol_strain=vs,
+            density_a=da,
+            gravity_center=gc,
+            neighbor_count=nbr_count.to(torch.int32),
+            initial_neighbor_count=self.solid.count0_full,
+            cell_overflow=cell_overflow,
+            # no ghost rows in this port yet
+            ghost_overflow=torch.zeros((), dtype=torch.int32,
+                                       device=self.device),
+            window_overflow=self._window_overflow(windows),
+            virial_rows=virial_rows,
+            virial_pressure=vp,
+            max_speed=torch.where(seg.valid, torch.linalg.norm(vel, dim=1),
+                                  zero).max(),
+        )
+        self._mark("solid and tail")
+        return out
+
+    @staticmethod
+    def _window_overflow(windows) -> torch.Tensor:
+        """Longest window of the frame.  The sweeps walk windows of any
+        length exactly, so nothing overflows: this is a load signal only
+        (the command line logs it as ``window_len``)."""
+        return windows[1].max().to(torch.int32)
+
+    def diagnostics(self, state: ParticleState) -> dict:
+        """Device diagnostics + host-side tensor assembly (the full [N,3,3]
+        arrays are built in numpy).  Keys, shapes and dtypes are those of the
+        JAX package's ``Simulation.diagnostics``."""
+        t0 = _time.perf_counter()
+        with torch.no_grad():
+            dev = self._diagnostics(state)
+            out = {k: v.cpu().numpy() for k, v in dev.items()}
+        t1 = _time.perf_counter()
+        n_s = self.solid.n_struct
+        s_rows = self.solid.s_idx[:n_s].cpu().numpy()
+
+        def full_tensor(sub):
+            t = np.zeros((self.n_pad, 3, 3), dtype=sub.dtype)
+            sd = sub.shape[-1]
+            t[s_rows, :sd, :sd] = sub[:n_s]
+            return t
+
+        out["strain"] = full_tensor(out.pop("strain_subset"))
+        out["stress"] = full_tensor(out.pop("stress_subset"))
+        out["deform_gradient"] = full_tensor(out.pop("deform_subset"))
+        vir = out.pop("virial_rows")  # [9, N]
+        out["virial_stress"] = np.ascontiguousarray(vir.T).reshape(
+            self.n_pad, 3, 3
+        )
+        self.last_diagnostics_seconds = dict(
+            device_and_copies=t1 - t0,
+            host_assembly=_time.perf_counter() - t1)
+        return out
+
+
+def load_case(data_path, grid_path, *, scene="none", compat=None,
+              numerics=None) -> "tuple[CaseConfig, GridData]":
+    """Convenience loader matching the reference CLI contract
+    (argv[1]=.data, argv[2]=.grid, src/main.cpp:502-507); counterpart of the
+    JAX package's ``solver.load_case``."""
+    from particlemethod_fsi_tpu_torch.io.data_file import parse_data_file
+    from particlemethod_fsi_tpu_torch.io.grid_file import read_grid_file
+
+    cfg = parse_data_file(data_path)
+    scene_cfg = SCENES[scene] if isinstance(scene, str) else scene
+    updates = {"scene": scene_cfg}
+    grid = read_grid_file(grid_path)
+    # dimensionality was a compile-time #define in the reference
+    # (TWO_DIMENSIONAL, src/main.cpp:50); infer it from the scene geometry:
+    # 2-D grids carry a z-extent of exactly one particle spacing
+    z_width = float(grid.domain_max[2] - grid.domain_min[2])
+    updates["two_dimensional"] = z_width <= 1.5 * float(grid.spacing)
+    if compat is not None:
+        updates["compat"] = compat
+    if numerics is not None:
+        updates["numerics"] = numerics
+    cfg = dataclasses.replace(cfg, **updates)
+    return cfg, grid

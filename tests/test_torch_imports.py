@@ -51,13 +51,81 @@ def test_port_runs_with_jax_unimportable():
         out = sim.run_chunk(sim.state0, 2)
         assert bool(torch.isfinite(out.pos).all())
         assert sim.rebuilds >= 1
-        assert windows_t.launch_counts == {"phase1_sweep": 0, "phase2_sweep": 0}
+        assert windows_t.launch_counts == {
+            "phase1_sweep": 0, "phase2_sweep": 0, "virial_sweep": 0}
         assert not [m for m in sys.modules
                     if m.split(".")[0] in ("jax", "flax", "triton")]
         print("PORT_OK", sim.n)
     """)
     assert r.returncode == 0, r.stderr[-2000:]
     assert "PORT_OK" in r.stdout
+
+
+def test_command_line_runs_with_jax_unimportable(tmp_path):
+    """Every module of the port imports, and ``cli.main`` runs a case from
+    files to files (generator command, ``.data`` writer, both outputs, the
+    diagnostics with the virial's plain version, a checkpoint), with ``jax``,
+    ``flax`` and the JAX package blocked."""
+    r = _run(f"""
+        import importlib, os, pkgutil, sys
+        import particlemethod_fsi_tpu_torch as port
+        names = [m.name for m in pkgutil.walk_packages(port.__path__,
+                                                       port.__name__ + ".")]
+        for name in names:
+            importlib.import_module(name)
+        for want in ("cli", "io.data_file", "io.native", "io.vtk_writer",
+                     "io.grid_file", "utils.logging", "utils.watchdog",
+                     "utils.checkpoint", "generator", "convert"):
+            assert port.__name__ + "." + want in names, want
+        from particlemethod_fsi_tpu_torch import cli
+        from particlemethod_fsi_tpu_torch.io import write_data_file, write_grid_file
+        from particlemethod_fsi_tpu_torch.models import bench_config, bench_grid
+        from particlemethod_fsi_tpu_torch.ops import windows_t
+        d = {str(tmp_path)!r}
+        write_data_file(bench_config().replace(
+            output_interval=3e-4, vtk_output_interval=3e-4, end_time=3e-4),
+            d + "/b.data")
+        write_grid_file(bench_grid(12), d + "/b.grid")
+        rc = cli.main([d + "/b.data", d + "/b.grid", d + "/b%03d.prof",
+                       d + "/b%03d.vtk", d + "/b.log", "--scene", "dam",
+                       "--device", "cpu", "--dtype", "float64",
+                       "--rebuild-margin", "0.5", "--metrics", d + "/m.jsonl",
+                       "--checkpoint", d + "/ck%03d.npz"])
+        assert rc == 0, rc
+        made = sorted(os.listdir(d))
+        assert made == ["b.data", "b.grid", "b.log", "b000.prof", "b000.vtk",
+                        "b003.prof", "b003.vtk", "ck000.npz", "ck003.npz",
+                        "m.jsonl"], made
+        assert "VirialPressureAtParticle" in open(d + "/b003.vtk").read()
+        assert not any(windows_t.launch_counts.values())
+        assert not [m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "flax", "triton")]
+        print("CLI_OK")
+    """)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert "CLI_OK" in r.stdout
+
+
+def test_command_line_without_a_gpu_exits_and_writes_nothing(tmp_path):
+    r = _run(f"""
+        import os, torch
+        from particlemethod_fsi_tpu_torch import cli
+        if torch.cuda.is_available():
+            print("HAS_GPU")
+            raise SystemExit(0)
+        d = {str(tmp_path)!r}
+        try:
+            cli.main(["x.data", "x.grid", d + "/o%03d.prof", d + "/o%03d.vtk",
+                      d + "/o.log", "--metrics", d + "/m.jsonl"])
+        except SystemExit as e:
+            assert e.code not in (0, None), e.code
+            print("EXITED", e.code)
+        else:
+            raise SystemExit("carried on on the CPU")
+        assert os.listdir(d) == []
+    """)
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert "HAS_GPU" in r.stdout or "EXITED" in r.stdout
 
 
 def test_without_device_cpu_it_raises_where_there_is_no_gpu():
@@ -114,7 +182,7 @@ def test_kernel_sources_and_loader_need_no_compiler_at_import():
     from particlemethod_fsi_tpu_torch.ops import cuda_loader
 
     cu = sorted(p.name for p in cuda_loader.CSRC_DIR.glob("*.cu"))
-    assert cu == ["phase1_sweep.cu", "phase2_sweep.cu"]
+    assert cu == ["phase1_sweep.cu", "phase2_sweep.cu", "virial_sweep.cu"]
     for p in cuda_loader.CSRC_DIR.glob("*.cu"):
         text = p.read_text()
         assert 'extern "C"' in text and "torch/" not in text
