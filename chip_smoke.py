@@ -6,36 +6,49 @@ Run from the repository root, with no arguments:
     python3 chip_smoke.py
 
 It needs one CUDA device and ``nvcc`` and fails (exit code != 0) without
-them; it never runs on the CPU.  Phases, each failing the run on its first
+them; it never runs on the CPU.  The port has two window-sweep backends,
+each with three hand-written kernels: ``pallas_t`` (field-major; kernels 1-3:
+phase 1, phase 2, virial) and ``pallas`` (row-major; kernels 4-6, the same
+three sums with the ring recomputed from positions); kernel 7 is the
+packed-bf16 throughput probe.  Phases, each failing the run on its first
 fault:
 
 1. the card: name and power limit as ``nvidia-smi`` gives them;
 2. build: the CUDA kernels under ``particlemethod_fsi_tpu_torch/csrc/`` are
    compiled from source (seconds printed as set-up);
-3. kernels: each hand-written kernel (phase 1, phase 2 and virial sweeps)
-   against its plain PyTorch version on the card -- (a) the ``double``
-   instances on small seeded frames for every specialization branch, rtol
-   1e-12; (b) the ``float`` instances on the 1M-particle main-path frame,
-   where the kernel must lie as close to a float64 evaluation as the plain
-   float32 version does; both timed, the kernel with its inputs warm in L2
-   (back-to-back launches) and cold (L2 flushed before every launch);
-4. a small coupled scene in float64, card (kernels) against CPU (plain
-   versions), ten steps; and the gate case (6,724 particles, float64, 100
-   steps through ``load_case``) against the reference binary's golden;
-5. the step path: the coupled dam break on an elastic bar at
-   ``n_side=1000`` (1,012,666 particles), float32, a warm-up chunk and three
-   timed chunks of 20 steps through ``Simulation.run_chunk``; finite
-   positions, launch counts equal to the steps taken, rebuild count, ms/step,
-   and where the step's time goes from CUDA events; then guarded against
-   unguarded chunks and the split of one ``diagnostics`` call;
-6. the command-line path: the same scene written as ``.data`` and ``.grid``
-   into a temporary directory, ``cli.main`` in process on the card for one
-   output interval with the watchdog on; two ``.prof``, two ``.vtk`` with
-   virial pressure, log and metrics written, read back and checked; launch
-   counts of all three kernels; seconds of the writers and readers.
+3. kernels: each hand-written kernel against its plain PyTorch version on
+   the card -- (a) the ``double`` instances of kernels 1-6 on small seeded
+   frames for every specialization branch, 2-D and 3-D, rtol 1e-12, and the
+   probe's float32 and bf16 instances against its twin (bf16 1e-4 of the
+   row sum, and farther than that from the chain in float32); (b) the
+   ``float`` instances on the 1M-particle frame of each backend's main
+   path, where
+   the kernel must lie as close to a float64 evaluation as the plain
+   float32 version does; timed with inputs warm in L2 (back-to-back
+   launches) and cold (L2 flushed before every launch);
+4. a small coupled scene in float64 on both backends, card (kernels)
+   against CPU (plain versions), ten steps; and the gate case (6,724
+   particles, float64, 100 steps through ``load_case``) on both backends
+   against the reference binary's golden;
+5. the step path of each backend: the coupled dam break on an elastic bar
+   at ``n_side=1000`` (1,012,666 particles), float32, a warm-up chunk and
+   three timed chunks of 20 steps through ``Simulation.run_chunk``; finite
+   positions, launch counts equal to the steps taken, rebuild count,
+   ms/step, and where the step's time goes from CUDA events; then (field-
+   major) guarded against unguarded chunks, and the split of one
+   ``diagnostics`` call; then frames of 2^24 cells or more, which
+   ``pallas_t`` hands to the row-major kernels;
+6. the command-line path of each backend: the same scene written as
+   ``.data`` and ``.grid`` into a temporary directory, ``cli.main`` in
+   process on the card for one output interval with the watchdog on;
+   ``.prof`` and ``.vtk`` files with virial pressure, log and metrics
+   written, read back and checked; launch counts of the backend's kernels;
+   seconds of the writers and readers;
+7. the probe: float32 and bf16 element throughput of kernel 7.
 
 ``python3 chip_smoke.py --kernels-only`` stops after phase 3a (build, register
-counts, double instances): the short first run of a new kernel.
+counts, double instances, the probe's check): the short first run of a new
+kernel.
 
 Output: one line per phase, then a ``{"kernels": [...]}`` JSON line, then as
 the last line ``{"ok": true, "device": {...}}``.
@@ -56,9 +69,11 @@ import time
 import numpy as np
 
 N_SIDE = 1000
+N_PARTICLES, N_SLOTS = 1_012_666, 1_012_736  # of the scene at N_SIDE
 CHUNK = 20
 TIMED_CHUNKS = 3
 CLI_STEPS = 20  # steps of the command-line phase's one output interval
+CLI_ROWS_STEPS = 10  # the same on the row-major backend
 
 # published peaks of one H100 SXM (NVIDIA data sheet): device memory rate and
 # float32 rate outside the tensor cores
@@ -75,6 +90,14 @@ PEAK_FLOP_PER_S = 67e12
 PHASE1_FLOP_PER_PAIR = 20
 PHASE2_FLOP_PER_PAIR = 34
 VIRIAL_FLOP_PER_PAIR = 39
+# the row-major kernels do the same pair math, with mu_h = 2 mu_i mu_j /
+# (mu_i + mu_j) guarded by a compare (phase 2: +3 over 2 / (1/mu_i + 1/mu_j);
+# virial: +1 over its finite test), and per particle the two cell
+# coordinates of the ring (subtract, divide, floor, two clamps: 5 each)
+PHASE1_ROWS_FLOP_PER_PAIR = 20
+PHASE2_ROWS_FLOP_PER_PAIR = 37
+VIRIAL_ROWS_FLOP_PER_PAIR = 40
+ROWS_FLOP_PER_PARTICLE = 10
 # bytes a particle that the function needs at the main path's flags (planar,
 # no surface tension, uniform ratios and radii, no count), float32.  Phase 1
 # reads x, y, vx, vy and the key and writes the wp sum and the divergence;
@@ -86,6 +109,12 @@ VIRIAL_FLOP_PER_PAIR = 39
 PHASE1_BYTES_PER_PARTICLE = 5 * 4 + 2 * 4
 PHASE2_BYTES_PER_PARTICLE = 8 * 4 + 2 * 4
 VIRIAL_BYTES_PER_PARTICLE = 7 * 4 + 4 * 4
+# the row-major kernels read the type where the field-major ones read the
+# key (phase 1: x, y, vx, vy, type; phase 2: x, y, vx, vy, pressure P, mu,
+# type; virial: the same), and phase 1 always writes the neighbour count
+PHASE1_ROWS_BYTES_PER_PARTICLE = 5 * 4 + 3 * 4
+PHASE2_ROWS_BYTES_PER_PARTICLE = 7 * 4 + 2 * 4
+VIRIAL_ROWS_BYTES_PER_PARTICLE = 7 * 4 + 4 * 4
 # larger than the card's L2 (50 MB on an H100): writing it evicts the inputs
 L2_FLUSH_BYTES = 256 * 2**20
 
@@ -236,7 +265,8 @@ def check_small_cases(device) -> dict:
     from particlemethod_fsi_tpu_torch.ops import windows as pw
     from particlemethod_fsi_tpu_torch.ops import windows_t as pwt
 
-    worst = {"phase1_sweep": 0.0, "phase2_sweep": 0.0, "virial_sweep": 0.0}
+    worst = {k: 0.0 for k in ("phase1_sweep", "phase2_sweep", "virial_sweep",
+                              "phase1_rows", "phase2_rows", "virial_rows")}
 
     def compare(kname, case, got, want):
         for r in range(want.shape[0]):
@@ -288,12 +318,89 @@ def check_small_cases(device) -> dict:
         want3 = pwt.virial_sweep_plain(*args, **kw)
         torch.cuda.synchronize()
         compare("virial_sweep", case, got3, want3)
-        for r in range(9):
-            live = r in (0, 1, 3, 4) or not wcfg.planar
-            if live != (float(want3[r].abs().max()) > 0):
-                fail(f"virial_sweep case {case!r}: row {r} is "
-                     f"{'all zero' if live else 'not zero'}")
+        check_virial_rows("virial_sweep", case, want3, wcfg)
+
+        # the row-major kernels 4-6 on the same frame and fields (mu itself
+        # in place of 1/mu); phase 1 always counts
+        rows = (frame, *win, cgrid, ks, wcfg, tables)
+        got4 = pw.phase1_rows_sweep(*rows)
+        want4 = pw.phase1_rows_sweep_plain(*rows)
+        torch.cuda.synchronize()
+        compare("phase1_rows", case, got4, want4)
+        for r in live + [pw.P1_COUNT]:
+            if not float(want4[r].abs().max()) > 0:
+                fail(f"phase1_rows case {case!r}: row {r} is all zero")
+        args_rows = (frame, p2["pp"], p2["pa"], p2["gc"], p2["mu"], *win,
+                     cgrid, ks, wcfg, tables)
+        got5 = pw.phase2_rows_sweep(*args_rows, **kw)
+        want5 = pw.phase2_rows_sweep_plain(*args_rows, **kw)
+        torch.cuda.synchronize()
+        compare("phase2_rows", case, got5, want5)
+        got6 = pw.virial_rows_sweep(*args_rows, **kw)
+        want6 = pw.virial_rows_sweep_plain(*args_rows, **kw)
+        torch.cuda.synchronize()
+        compare("virial_rows", case, got6, want6)
+        check_virial_rows("virial_rows", case, want6, wcfg)
     return worst
+
+
+def check_pads_in_windows(device) -> float:
+    """Kernels 4-6 (double) where only their validity test keeps pad rows
+    out: every pad moved next to a fluid particle and every window run on
+    to the frame's end, so that each pad is a candidate of every receiver;
+    against the plain versions (rtol 1e-12 of the row scale), and the real
+    rows against the same kernels on the exact windows."""
+    import torch
+    from particlemethod_fsi_tpu_torch.ops import windows as pw
+
+    (frame, win, cgrid, ks, wcfg, tables, p2, _,
+     cfg) = small_case("main_path_flags", device)
+    real = frame.prop >= 0
+    pads = (~real).nonzero()[:, 0]
+    fluid = (frame.prop == 1).nonzero()[:, 0][: pads.numel()]
+    if not 0 < pads.numel() <= fluid.numel():
+        fail(f"pads in windows: {pads.numel()} pads, {fluid.numel()} fluid")
+    pos = frame.pos.clone()
+    pos[pads] = pos[fluid] + 0.3e-3 * torch.tensor(
+        [1.0, 0.5, 0.0], dtype=pos.dtype, device=device)
+    moved = frame._replace(pos=pos)
+    to_end = (frame.pos.shape[0] - win[0]).to(torch.int32)
+    kw = dict(volume=1e-6, two_dimensional=True)
+    fields = (p2["pp"], p2["pa"], p2["gc"], p2["mu"])
+    worst = 0.0
+    for name, run in (
+            ("phase1_rows", lambda f, w, k: pw.phase1_rows_sweep(
+                f, *w, cgrid, ks, wcfg, tables) if k else
+             pw.phase1_rows_sweep_plain(f, *w, cgrid, ks, wcfg, tables)),
+            ("phase2_rows", lambda f, w, k: (
+                pw.phase2_rows_sweep if k else pw.phase2_rows_sweep_plain)(
+                f, *fields, *w, cgrid, ks, wcfg, tables, **kw)),
+            ("virial_rows", lambda f, w, k: (
+                pw.virial_rows_sweep if k else pw.virial_rows_sweep_plain)(
+                f, *fields, *w, cgrid, ks, wcfg, tables, **kw))):
+        got = run(moved, (win[0], to_end), True)
+        want = run(moved, (win[0], to_end), False)
+        exact = run(frame, win, True)
+        torch.cuda.synchronize()
+        for r in range(want.shape[0]):
+            scale = float(want[r].abs().max())
+            for a, b, what in ((got[r], want[r], "plain version"),
+                               (got[r][real], exact[r][real], "exact windows")):
+                err = float((a - b).abs().max())
+                if not torch.allclose(a, b, rtol=1e-12, atol=1e-12 * scale):
+                    fail(f"{name} with pads in its windows, row {r}: {err:.3e} "
+                         f"from the {what} (scale {scale:.3e})")
+                if scale > 0:
+                    worst = max(worst, err / scale)
+    return worst
+
+
+def check_virial_rows(kname, case, want, wcfg):
+    for r in range(9):
+        live = r in (0, 1, 3, 4) or not wcfg.planar
+        if live != (float(want[r].abs().max()) > 0):
+            fail(f"{kname} case {case!r}: row {r} is "
+                 f"{'all zero' if live else 'not zero'}")
 
 
 # ---------------------------------------------------------------------------
@@ -301,115 +408,193 @@ def check_small_cases(device) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def check_and_time_main_frame(sim, state) -> list:
-    """The three kernels in float32 on the main path's own frame, against
-    their plain versions, with times and the roofline bound."""
+def judge(kname, k32, p32, p64, count_row=None):
+    """The float32 kernel must be as close to the float64 evaluation as the
+    plain float32 version is (x8, plus 1e-6 of the row's scale): both round
+    every term to float32 and sum some tens of them, in another order, with
+    rsqrt approximated in float32.  A neighbour-count row is held to the
+    plain float32 count instead: equal but for +-1 at no more than 1e-5 of
+    the receivers (a pair within one float32 rounding of the support radius
+    may fall either side: the kernel's rij2 is a fused multiply-add).
+    Returns the largest |kernel - plain| over the other rows."""
+    worst = 0.0
+    if count_row is not None:
+        d = (k32[count_row] - p32[count_row]).abs()
+        if not (float(d.max()) <= 1 and int((d > 0).sum()) <= 1e-5 * d.numel()):
+            fail(f"{kname} float32 at 1M: neighbour counts differ by up to "
+                 f"{float(d.max())} at {int((d > 0).sum())} receivers")
+    for r in range(p64.shape[0]):
+        if r == count_row:
+            continue
+        scale = float(p64[r].abs().max())
+        err_k = float((k32[r].double() - p64[r]).abs().max())
+        err_p = float((p32[r].double() - p64[r]).abs().max())
+        worst = max(worst, float((k32[r] - p32[r]).abs().max()))
+        if not err_k <= 8 * err_p + 1e-6 * scale:
+            fail(f"{kname} float32 at 1M, row {r}: kernel is {err_k:.3e} "
+                 f"from the float64 result, the plain version "
+                 f"{err_p:.3e} (scale {scale:.3e})")
+    return worst
+
+
+def kernel_row(name, source, replaces, run, plain, plain64, nbytes, flops,
+               count_row=None):
+    """Check one float32 kernel against its plain version (judged against
+    the plain float64 evaluation), time it warm and cold and the plain
+    version once warm, and make its entry of the ``kernels`` line."""
+    got, want = run(), plain()
+    plain_ms = time_ms(plain, 2)
+    err = judge(name, got, want, plain64(), count_row)
+    ms, cold = time_ms(run, 50), time_ms_cold(run, 10)
+    return _row(name, source, replaces, err, ms, cold, plain_ms, nbytes,
+                flops)
+
+
+def main_frame(sim, state):
+    """A fresh frame of the state with its windows and a float64 copy, the
+    way the step builds it, and the pairs inside the kernel radius (for the
+    operations bound)."""
     import torch
     from particlemethod_fsi_tpu_torch.ops import packed_engine as pk
     from particlemethod_fsi_tpu_torch.ops import windows as pw
     from particlemethod_fsi_tpu_torch.ops import windows_t as pwt
     from particlemethod_fsi_tpu_torch.ops.packed_engine import SortedFrame
 
-    grid, ks, wcfg, tables = (sim._frame_grid, sim.kernels, sim._pcfg,
-                              sim.tables)
+    grid, ks, wcfg = sim._frame_grid, sim.kernels, sim._pcfg
     frame = pk.sort_frame(state.pos, state.vel, state.prop, grid)
     win = pw.compute_windows(frame, grid, wcfg)
-    offs, _ = pw.row_offsets(grid)
-    n = frame.pos.shape[0]
     frame64 = SortedFrame(key=frame.key, pos=frame.pos.double(),
                           vel=frame.vel.double(), prop=frame.prop,
                           orig=frame.orig)
-    tables64 = type(tables).from_config(sim.cfg, ks, torch.float64, sim.device)
-
-    def judge(kname, k32, p32, p64):
-        """The float32 kernel must be as close to the float64 evaluation as
-        the plain float32 version is (x8, plus 1e-6 of the row's scale):
-        both round every term to float32 and sum some tens of them, in
-        another order, with rsqrt approximated in float32."""
-        worst = 0.0
-        for r in range(p64.shape[0]):
-            scale = float(p64[r].abs().max())
-            err_k = float((k32[r].double() - p64[r]).abs().max())
-            err_p = float((p32[r].double() - p64[r]).abs().max())
-            worst = max(worst, float((k32[r] - p32[r]).abs().max()))
-            if not err_k <= 8 * err_p + 1e-6 * scale:
-                fail(f"{kname} float32 at 1M, row {r}: kernel is {err_k:.3e} "
-                     f"from the float64 result, the plain version "
-                     f"{err_p:.3e} (scale {scale:.3e})")
-        return worst
-
-    # true pairs inside the kernel radius, for the operations bound
-    cnt = pwt.phase1_sweep(frame, *win, offs, ks, wcfg, tables,
-                           support=ks.radius_p, count=True)[pwt.P1_COUNT]
+    tables64 = type(sim.tables).from_config(sim.cfg, ks, torch.float64,
+                                            sim.device)
+    offs, _ = pw.row_offsets(grid)
+    cnt = pwt.phase1_sweep_plain(frame, *win, offs, ks, wcfg, sim.tables,
+                                 support=ks.radius_p, count=True)[pwt.P1_COUNT]
     true_pairs = float(cnt.double().sum())
-    tested_pairs = float(win[1].double().sum()) * wcfg.block
     table_bytes = (win[0].numel() + win[1].numel()) * 4
+    return frame, frame64, win, tables64, true_pairs, table_bytes
+
+
+def check_and_time_main_frame(sim, state) -> list:
+    """Kernels 1-3 in float32 on the field-major main path's own frame,
+    against their plain versions, with times and the roofline bound."""
+    from particlemethod_fsi_tpu_torch.ops import windows as pw
+    from particlemethod_fsi_tpu_torch.ops import windows_t as pwt
+
+    grid, ks, wcfg, tables = (sim._frame_grid, sim.kernels, sim._pcfg,
+                              sim.tables)
+    frame, frame64, win, tables64, true_pairs, table_bytes = main_frame(
+        sim, state)
+    offs, _ = pw.row_offsets(grid)
+    n = frame.pos.shape[0]
+    tested_pairs = float(win[1].double().sum()) * wcfg.block
+    src = "particlemethod_fsi_tpu/ops/pallas_windows_t.py"
     rows = []
 
-    # ---- phase 1
     p1 = dict(support=grid.support, count=False)
-    k1 = pwt.phase1_sweep(frame, *win, offs, ks, wcfg, tables, **p1)
-    pl1 = pwt.phase1_sweep_plain(frame, *win, offs, ks, wcfg, tables, **p1)
-    plain1_ms = time_ms(lambda: pwt.phase1_sweep_plain(
-        frame, *win, offs, ks, wcfg, tables, **p1), 2)
-    pl1_64 = pwt.phase1_sweep_plain(frame64, *win, offs, ks, wcfg, tables64,
-                                    **p1)
-    err1 = judge("phase1_sweep", k1, pl1, pl1_64)
+    rows.append(kernel_row(
+        "phase1_sweep", "phase1_sweep.cu", f"{src}:172",
+        lambda: pwt.phase1_sweep(frame, *win, offs, ks, wcfg, tables, **p1),
+        lambda: pwt.phase1_sweep_plain(frame, *win, offs, ks, wcfg, tables,
+                                       **p1),
+        lambda: pwt.phase1_sweep_plain(frame64, *win, offs, ks, wcfg,
+                                       tables64, **p1),
+        n * PHASE1_BYTES_PER_PARTICLE + table_bytes,
+        true_pairs * PHASE1_FLOP_PER_PAIR))
 
-    def run1():
-        return pwt.phase1_sweep(frame, *win, offs, ks, wcfg, tables, **p1)
-
-    ms1, cold1 = time_ms(run1, 50), time_ms_cold(run1, 10)
-    bytes1 = n * PHASE1_BYTES_PER_PARTICLE + table_bytes
-    rows.append(_row("phase1_sweep", "phase1_sweep.cu",
-                     "particlemethod_fsi_tpu/ops/pallas_windows_t.py:172",
-                     err1, ms1, cold1, plain1_ms, bytes1,
-                     true_pairs * PHASE1_FLOP_PER_PAIR))
-
-    # ---- phase 2, on the fields of phase 1 + EOS
+    # phase 2 and the virial on the fields of phase 1 + EOS: the same
+    # float32-valued inputs for all three evaluations
     f1 = pwt.phase1_fields_t(frame, grid, ks, tables, cfg=wcfg, windows=win)
-    # the same float32-valued inputs for all three evaluations
     pp, pa, gc = f1["pressure_p"], f1["pressure_a"], f1["gravity_center"]
     invmu = pwt.inverse_viscosity(f1["mu"])
     kw = dict(volume=sim.volume, two_dimensional=sim.cfg.two_dimensional)
     a32 = (frame, pp, pa, gc, invmu, *win, offs, ks, wcfg, tables)
     a64 = (frame64, pp.double(), pa.double(), gc.double(), invmu.double(),
            *win, offs, ks, wcfg, tables64)
-    k2 = pwt.phase2_sweep(*a32, **kw)
-    pl2 = pwt.phase2_sweep_plain(*a32, **kw)
-    plain2_ms = time_ms(lambda: pwt.phase2_sweep_plain(*a32, **kw), 2)
-    pl2_64 = pwt.phase2_sweep_plain(*a64, **kw)
-    err2 = judge("phase2_sweep", k2, pl2, pl2_64)
-
-    def run2():
-        return pwt.phase2_sweep(*a32, **kw)
-
-    ms2, cold2 = time_ms(run2, 50), time_ms_cold(run2, 10)
-    bytes2 = n * PHASE2_BYTES_PER_PARTICLE + table_bytes
-    rows.append(_row("phase2_sweep", "phase2_sweep.cu",
-                     "particlemethod_fsi_tpu/ops/pallas_windows_t.py:330",
-                     err2, ms2, cold2, plain2_ms, bytes2,
-                     true_pairs * PHASE2_FLOP_PER_PAIR))
-    # ---- virial, on the same fields
-    k3 = pwt.virial_sweep(*a32, **kw)
-    pl3 = pwt.virial_sweep_plain(*a32, **kw)
-    plain3_ms = time_ms(lambda: pwt.virial_sweep_plain(*a32, **kw), 2)
-    pl3_64 = pwt.virial_sweep_plain(*a64, **kw)
-    err3 = judge("virial_sweep", k3, pl3, pl3_64)
-
-    def run3():
-        return pwt.virial_sweep(*a32, **kw)
-
-    ms3, cold3 = time_ms(run3, 50), time_ms_cold(run3, 10)
-    bytes3 = n * VIRIAL_BYTES_PER_PARTICLE + table_bytes
-    rows.append(_row("virial_sweep", "virial_sweep.cu",
-                     "particlemethod_fsi_tpu/ops/pallas_windows_t.py:745",
-                     err3, ms3, cold3, plain3_ms, bytes3,
-                     true_pairs * VIRIAL_FLOP_PER_PAIR))
-    print(f"kernels at 1M: frame rows {n}, window senders tested per "
-          f"receiver {tested_pairs / n:.1f}, pairs inside the kernel radius "
-          f"per receiver {true_pairs / n:.2f}, longest window "
+    for name, kernel, plain, line, per_particle, per_pair in (
+            ("phase2_sweep", pwt.phase2_sweep, pwt.phase2_sweep_plain, 330,
+             PHASE2_BYTES_PER_PARTICLE, PHASE2_FLOP_PER_PAIR),
+            ("virial_sweep", pwt.virial_sweep, pwt.virial_sweep_plain, 745,
+             VIRIAL_BYTES_PER_PARTICLE, VIRIAL_FLOP_PER_PAIR)):
+        rows.append(kernel_row(
+            name, f"{name}.cu", f"{src}:{line}",
+            lambda k=kernel: k(*a32, **kw), lambda p=plain: p(*a32, **kw),
+            lambda p=plain: p(*a64, **kw),
+            n * per_particle + table_bytes, true_pairs * per_pair))
+    print(f"kernels at 1M (pallas_t frame): frame rows {n}, window senders "
+          f"tested per receiver {tested_pairs / n:.1f}, pairs inside the "
+          f"kernel radius per receiver {true_pairs / n:.2f}, longest window "
           f"{int(win[1].max())}")
+    return rows
+
+
+def check_and_time_rows_frame(sim, state) -> list:
+    """Kernels 4-6 in float32 on the row-major main path's own frame,
+    against their plain versions, with times and the roofline bound; and
+    kernel 4's fields against kernel 1's on the same frame."""
+    import torch
+    from particlemethod_fsi_tpu_torch.ops import windows as pw
+    from particlemethod_fsi_tpu_torch.ops import windows_t as pwt
+
+    grid, ks, wcfg, tables = (sim._frame_grid, sim.kernels, sim._pcfg,
+                              sim.tables)
+    frame, frame64, win, tables64, true_pairs, table_bytes = main_frame(
+        sim, state)
+    n = frame.pos.shape[0]
+    src = "particlemethod_fsi_tpu/ops/pallas_pairwise.py"
+    rows = []
+    p1 = (frame, *win, grid, ks, wcfg, tables)
+    rows.append(kernel_row(
+        "phase1_rows", "phase1_sweep.cu", f"{src}:199",
+        lambda: pw.phase1_rows_sweep(*p1),
+        lambda: pw.phase1_rows_sweep_plain(*p1),
+        lambda: pw.phase1_rows_sweep_plain(frame64, *win, grid, ks, wcfg,
+                                           tables64),
+        n * PHASE1_ROWS_BYTES_PER_PARTICLE + table_bytes,
+        true_pairs * PHASE1_ROWS_FLOP_PER_PAIR + n * ROWS_FLOP_PER_PARTICLE,
+        count_row=pw.P1_COUNT))
+
+    # kernel 4 against kernel 1 on this fresh frame: the same pairs (keys
+    # and positions agree on a fresh frame, every family radius lies inside
+    # the support) in the same order
+    f4 = pw.phase1_fields(frame, grid, ks, tables, cfg=wcfg, windows=win)
+    f1 = pwt.phase1_fields_t(frame, grid, ks, tables, cfg=wcfg, windows=win,
+                             count=True)
+    diff4 = 0.0
+    for k in ("density_a", "vol_strain", "divergence", "pressure_p",
+              "pressure_a", "neighbor_count"):
+        a, b = f4[k].double(), f1[k].double()
+        d = float((a - b).abs().max())
+        diff4 = max(diff4, d)
+        if not d <= 1e-6 * max(float(b.abs().max()), 1e-30):
+            fail(f"phase1_rows against phase1_sweep at 1M: {k} differs by "
+                 f"{d:.3e}")
+    if not torch.equal(f4["neighbor_count"], f1["neighbor_count"]):
+        fail("phase1_rows against phase1_sweep at 1M: neighbour counts differ")
+
+    pp, pa, gc, mu = (f4["pressure_p"], f4["pressure_a"],
+                      f4["gravity_center"].contiguous(), f4["mu"])
+    kw = dict(volume=sim.volume, two_dimensional=sim.cfg.two_dimensional)
+    a32 = (frame, pp, pa, gc, mu, *win, grid, ks, wcfg, tables)
+    a64 = (frame64, pp.double(), pa.double(), gc.double(), mu.double(),
+           *win, grid, ks, wcfg, tables64)
+    for name, kernel, plain, source, line, per_particle, per_pair in (
+            ("phase2_rows", pw.phase2_rows_sweep, pw.phase2_rows_sweep_plain,
+             "phase2_sweep.cu", 331, PHASE2_ROWS_BYTES_PER_PARTICLE,
+             PHASE2_ROWS_FLOP_PER_PAIR),
+            ("virial_rows", pw.virial_rows_sweep, pw.virial_rows_sweep_plain,
+             "virial_sweep.cu", 676, VIRIAL_ROWS_BYTES_PER_PARTICLE,
+             VIRIAL_ROWS_FLOP_PER_PAIR)):
+        rows.append(kernel_row(
+            name, source, f"{src}:{line}",
+            lambda k=kernel: k(*a32, **kw), lambda p=plain: p(*a32, **kw),
+            lambda p=plain: p(*a64, **kw), n * per_particle + table_bytes,
+            true_pairs * per_pair + n * ROWS_FLOP_PER_PARTICLE))
+    print(f"kernels at 1M (pallas frame): kernel 4's fields against kernel "
+          f"1's on the same frame: largest difference {diff4:.3e}, neighbour "
+          f"counts equal; pairs inside the kernel radius per receiver "
+          f"{true_pairs / n:.2f}")
     return rows
 
 
@@ -437,28 +622,28 @@ def _row(name, source, replaces, err, ms, cold_ms, plain_ms, nbytes, flops):
 # ---------------------------------------------------------------------------
 
 
-def check_small_scene():
-    """Ten coupled steps of the bench scene at n_side=24 in float64: the
-    card (CUDA kernels) against the CPU (plain versions).  Tolerance: the
-    bar the repository holds its backends to among themselves (pos rtol
-    1e-12 / atol 1e-15, vel rtol 1e-9 / atol 1e-13): only the order of the
-    pair sums differs."""
+def check_small_scene(backend: str):
+    """Ten coupled steps of the bench scene at n_side=24 in float64 on one
+    backend: the card (CUDA kernels) against the CPU (plain versions).
+    Tolerance: the bar the repository holds its backends to among
+    themselves (pos rtol 1e-12 / atol 1e-15, vel rtol 1e-9 / atol 1e-13):
+    only the order of the pair sums differs."""
     from particlemethod_fsi_tpu_torch.models import build_case
     from particlemethod_fsi_tpu_torch.state import to_numpy
 
-    kw = dict(dtype="float64", pallas_block=32)
+    kw = dict(dtype="float64", pallas_block=32, backend=backend)
     gpu = build_case(24, **kw)
     cpu = build_case(24, device="cpu", **kw)
     a = to_numpy(gpu.run_chunk(gpu.state0, 10), gpu.n)
     b = to_numpy(cpu.run_chunk(cpu.state0, 10), cpu.n)
     if gpu.rebuilds != cpu.rebuilds:
-        fail(f"small scene: rebuilds differ, card {gpu.rebuilds} cpu "
-             f"{cpu.rebuilds}")
+        fail(f"small scene ({backend}): rebuilds differ, card {gpu.rebuilds} "
+             f"cpu {cpu.rebuilds}")
     try:
         np.testing.assert_allclose(a["pos"], b["pos"], rtol=1e-12, atol=1e-15)
         np.testing.assert_allclose(a["vel"], b["vel"], rtol=1e-9, atol=1e-13)
     except AssertionError as e:
-        fail(f"small scene: card and CPU disagree: {e}")
+        fail(f"small scene ({backend}): card and CPU disagree: {e}")
     return float(np.abs(a["pos"] - b["pos"]).max()), gpu.rebuilds
 
 
@@ -467,24 +652,47 @@ def check_small_scene():
 # ---------------------------------------------------------------------------
 
 
-def run_main_path():
+# the kernels of each backend's step, and of its diagnostics
+STEP_KERNELS = {"pallas_t": ("phase1_sweep", "phase2_sweep"),
+                "pallas": ("phase1_rows", "phase2_rows")}
+VIRIAL_KERNEL = {"pallas_t": "virial_sweep", "pallas": "virial_rows"}
+
+
+def expect_counts(backend: str, steps: int, dumps: int) -> dict:
+    """Launch counts of ``steps`` steps and ``dumps`` diagnostics calls on
+    one backend: every other kernel at 0."""
+    from particlemethod_fsi_tpu_torch.ops import windows as pw
+
+    want = dict.fromkeys(pw.launch_counts, 0)
+    for k in STEP_KERNELS[backend]:
+        want[k] = steps + dumps
+    want[VIRIAL_KERNEL[backend]] = dumps
+    return want
+
+
+def run_main_path(backend: str):
+    """The bench scene at n_side=1000 on one backend: a warm-up chunk and
+    three timed chunks through ``run_chunk``, the launch counts of those 80
+    steps, ms/step and its breakdown by section."""
     import torch
     from particlemethod_fsi_tpu_torch.models import build_case
-    from particlemethod_fsi_tpu_torch.ops import windows_t as pwt
+    from particlemethod_fsi_tpu_torch.ops import windows as pw
 
     t0 = time.time()
-    sim = build_case(N_SIDE)
+    sim = build_case(N_SIDE, backend=backend)
     torch.cuda.synchronize()
     setup_s = time.time() - t0
-    if sim.n != 1_012_666 or sim.n_pad != 1_012_736:
+    if sim.n != N_PARTICLES or sim.n_pad != N_SLOTS:
         fail(f"main path: {sim.n} particles in {sim.n_pad} slots")
     flags = sim._pcfg
     if (flags.surface_tension or not flags.uniform_ratio or not flags.planar
             or not flags.uniform_radii or flags.block != 64
-            or sim.dtype != torch.float32 or sim.cfg.substeps != 1):
-        fail(f"main path: unexpected specialization {flags}")
+            or sim.dtype != torch.float32 or sim.cfg.substeps != 1
+            or sim._backend != backend):
+        fail(f"main path: unexpected specialization {flags} on "
+             f"{sim._backend}")
 
-    pwt.reset_launch_counts()
+    pw.reset_launch_counts()
     state = sim.run_chunk(sim.state0, CHUNK)  # warm-up
     torch.cuda.synchronize()
     chunk_ms = []
@@ -497,18 +705,22 @@ def run_main_path():
         torch.cuda.synchronize()
         chunk_ms.append((time.time() - t0) * 1e3 / CHUNK)
     events, sim.profile_events = sim.profile_events, None
-    counts = dict(pwt.launch_counts)
+    counts = dict(pw.launch_counts)
     steps = CHUNK * (TIMED_CHUNKS + 1)
 
     if not bool(torch.isfinite(state.pos).all()):
         fail("main path: positions are not all finite")
     if tuple(state.pos.shape) != (sim.n_pad, 3):
         fail(f"main path: positions have shape {tuple(state.pos.shape)}")
-    if counts != {"phase1_sweep": steps, "phase2_sweep": steps,
-                  "virial_sweep": 0}:
-        fail(f"main path: launch counts {counts} after {steps} steps")
-    if not 0 < sim.rebuilds < steps:
+    if counts != expect_counts(backend, steps, 0):
+        fail(f"main path ({backend}): launch counts {counts} after {steps} "
+             f"steps")
+    # the field-major backend reuses its frame under the C8 margin; the
+    # row-major one rebuilds every step
+    if backend == "pallas_t" and not 0 < sim.rebuilds < steps:
         fail(f"main path: {sim.rebuilds} rebuilds in {steps} steps")
+    if backend == "pallas" and sim.rebuilds != steps:
+        fail(f"main path (pallas): {sim.rebuilds} rebuilds in {steps} steps")
     if abs(float(state.time) - steps * sim.cfg.dt) > 1e-3 * steps * sim.cfg.dt:
         fail(f"main path: time {float(state.time)} after {steps} steps")
     speed = float(state.vel[: sim.n].norm(dim=1).max())
@@ -522,28 +734,99 @@ def run_main_path():
     for (_, a), (name, b) in zip(events, events[1:]):
         if name != "begin":
             spans[name] = spans.get(name, 0.0) + a.elapsed_time(b)
-    label = {"frame": "wrap, rebuild test, sort and windows",
+    label = {"frame": ("wrap, rebuild test, sort and windows"
+                       if backend == "pallas_t"
+                       else "wrap, sort and windows (every step)"),
              "phase1": "phase 1 + EOS", "phase2": "phase 2",
              "integrate": "gravity, unsort, kick, convection",
              "solid": "elastic solid"}
     breakdown = {label[k]: v / CHUNK for k, v in spans.items()}
     ms = float(np.median(chunk_ms))
-    print(f"main path: {sim.n} particles ({sim.n_pad} slots), float32, "
-          f"set-up {setup_s:.1f} s, {steps} steps, rebuilds {sim.rebuilds}, "
-          f"ms/step by chunk {[round(m, 3) for m in chunk_ms]}, median "
-          f"{ms:.3f} ms/step, {sim.n / ms * 1e3:.4g} particle-steps/s, "
-          f"max speed {speed:.4f} m/s, peak device memory "
+    print(f"main path ({backend}): {sim.n} particles ({sim.n_pad} slots), "
+          f"float32, set-up {setup_s:.1f} s, {steps} steps, rebuilds "
+          f"{sim.rebuilds}, launches {json.dumps(counts)}, ms/step by chunk "
+          f"{[round(m, 3) for m in chunk_ms]}, median {ms:.3f} ms/step, "
+          f"{sim.n / ms * 1e3:.4g} particle-steps/s, max speed {speed:.4f} "
+          f"m/s, peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
-    print("main path, ms/step by section (CUDA events, last chunk): "
-          + json.dumps({k: round(v, 4) for k, v in breakdown.items()})
+    print(f"main path ({backend}), ms/step by section (CUDA events, last "
+          "chunk): " + json.dumps({k: round(v, 4) for k, v in breakdown.items()})
           + f"; sum {sum(breakdown.values()):.3f} of {chunk_ms[-1]:.3f}")
     return sim, state, counts
 
 
-def time_guarded_and_diagnostics(sim, state):
+def time_diagnostics(sim, state, backend: str) -> dict:
+    """The split of one ``diagnostics`` call at 1M, after a warm-up call;
+    the launch counts of that one call."""
+    import torch
+    from particlemethod_fsi_tpu_torch.ops import windows as pw
+
+    sim.diagnostics(state)  # warm-up
+    pw.reset_launch_counts()
+    sim.profile_events = []
+    torch.cuda.synchronize()
+    t0 = time.time()
+    d = sim.diagnostics(state)
+    total_ms = (time.time() - t0) * 1e3
+    counts = dict(pw.launch_counts)
+    events, sim.profile_events = sim.profile_events, None
+    if counts != expect_counts(backend, 0, 1):
+        fail(f"diagnostics at 1M ({backend}): launch counts {counts}")
+    spans = {name: a.elapsed_time(b)
+             for (_, a), (name, b) in zip(events, events[1:])}
+    host = {k: v * 1e3 for k, v in sim.last_diagnostics_seconds.items()}
+    device_ms = sum(spans.values())
+    if not (np.isfinite(d["virial_pressure"]).all()
+            and float(np.abs(d["virial_pressure"]).max()) > 0):
+        fail("diagnostics at 1M: virial pressure is zero or not finite")
+    print(f"diagnostics at 1M ({backend}), ms by section of one call (CUDA "
+          "events): " + json.dumps({k: round(v, 3) for k, v in spans.items()})
+          + f"; device sum {device_ms:.3f}; host clock: device work and "
+          f"copies to the host {host['device_and_copies']:.1f}, numpy "
+          f"assembly {host['host_assembly']:.1f}, whole call {total_ms:.1f}; "
+          f"launches {json.dumps(counts)}")
+    return counts
+
+
+def check_huge_frame_route():
+    """Frames of 2^24 cells or more: the bench scene at n_side=24 in a
+    domain widened until its cell grid has that many cells, float32 on the
+    card.  Built on ``pallas_t`` it must resolve to the row-major kernels and
+    step bit for bit like an explicit ``backend="pallas"`` run."""
+    import dataclasses
+
+    import torch
+    from particlemethod_fsi_tpu_torch.models import bench_config, bench_grid
+    from particlemethod_fsi_tpu_torch.ops import windows as pw
+    from particlemethod_fsi_tpu_torch.solver import Simulation
+
+    grid = bench_grid(24)
+    side = 4200 * 3.1e-3  # 4200^2 > 2^24 cells of the frame's width
+    grid = dataclasses.replace(grid, domain_max=np.array(
+        [grid.domain_min[0] + side, grid.domain_min[1] + side,
+         grid.domain_max[2]]))
+    states = {}
+    pw.reset_launch_counts()
+    for backend in ("pallas_t", "pallas"):
+        sim = Simulation(bench_config(backend=backend, pallas_block=32), grid)
+        if sim._frame_grid.num_cells < 1 << 24 or sim._backend != "pallas":
+            fail(f"huge frame: {sim._frame_grid.num_cells} cells resolved to "
+                 f"{sim._backend}")
+        states[backend] = sim.run_chunk(sim.state0, 3)
+    counts = dict(pw.launch_counts)
+    if counts != expect_counts("pallas", 6, 0):
+        fail(f"huge frame: launch counts {counts}")
+    a, b = states["pallas_t"], states["pallas"]
+    if not (torch.equal(a.pos, b.pos) and torch.equal(a.vel, b.vel)):
+        fail("huge frame: the automatic route and backend='pallas' differ")
+    if not bool(torch.isfinite(a.pos).all()):
+        fail("huge frame: positions are not all finite")
+    return sim._frame_grid.num_cells, counts
+
+
+def time_guarded(sim, state):
     """At 1M on the card: guarded against unguarded chunks, in turns within
-    this one call (unguarded, guarded, guarded, unguarded, twice over), and
-    the split of one ``diagnostics`` call."""
+    this one call (unguarded, guarded, guarded, unguarded, twice over)."""
     import torch
 
     def chunk_ms(guarded: bool):
@@ -567,28 +850,7 @@ def time_guarded_and_diagnostics(sim, state):
           f"(u g g u u g g u): unguarded {[round(m, 3) for m in unguarded]}, "
           f"guarded {[round(m, 3) for m in guarded]}; medians "
           f"{np.median(unguarded):.3f} and {np.median(guarded):.3f}")
-
-    sim.diagnostics(state)  # warm-up
-    sim.profile_events = []
-    torch.cuda.synchronize()
-    t0 = time.time()
-    d = sim.diagnostics(state)
-    total_ms = (time.time() - t0) * 1e3
-    events, sim.profile_events = sim.profile_events, None
-    spans = {name: a.elapsed_time(b)
-             for (_, a), (name, b) in zip(events, events[1:])}
-    host = {k: v * 1e3 for k, v in sim.last_diagnostics_seconds.items()}
-    device_ms = sum(spans.values())
-    if not (np.isfinite(d["virial_pressure"]).all()
-            and float(np.abs(d["virial_pressure"]).max()) > 0):
-        fail("diagnostics at 1M: virial pressure is zero or not finite")
-    print("diagnostics at 1M, ms by section of one call (CUDA events): "
-          + json.dumps({k: round(v, 3) for k, v in spans.items()})
-          + f"; device sum {device_ms:.3f}; host clock: device work and "
-          f"copies to the host {host['device_and_copies']:.1f}, numpy "
-          f"assembly {host['host_assembly']:.1f}, whole call {total_ms:.1f}")
-    return state, dict(unguarded_ms=float(np.median(unguarded)),
-                       guarded_ms=float(np.median(guarded)))
+    return state
 
 
 # ---------------------------------------------------------------------------
@@ -596,27 +858,34 @@ def time_guarded_and_diagnostics(sim, state):
 # ---------------------------------------------------------------------------
 
 
-def check_gate_golden(tmp: str):
+def check_gate_golden(tmp: str, backend: str):
     """The coupled gate case (``cases/fsi_gate``), float64, 100 steps on the
-    card through ``load_case``, against ``goldens/gate/gate100.prof.gz``
-    written by the reference binary.  Tolerance: positions within 2.0e-6 m,
-    the bar of the CPU tests (the ``%e`` six-digit floor plus drift)."""
+    card through ``load_case`` on one backend, against
+    ``goldens/gate/gate100.prof.gz`` written by the reference binary.
+    Tolerance: positions within 2.0e-6 m, the bar of the CPU tests (the
+    ``%e`` six-digit floor plus drift)."""
     from particlemethod_fsi_tpu_torch.config import NumericsConfig
     from particlemethod_fsi_tpu_torch.generator import generate_case
+    from particlemethod_fsi_tpu_torch.ops import windows as pw
     from particlemethod_fsi_tpu_torch.solver import Simulation, load_case
     from particlemethod_fsi_tpu_torch.state import to_numpy
 
     here = os.path.dirname(os.path.abspath(__file__))
-    shutil.copy(os.path.join(here, "cases", "fsi_gate", "gate.boid"), tmp)
-    generate_case(os.path.join(tmp, "gate"))
+    if not os.path.exists(os.path.join(tmp, "gate.grid")):
+        shutil.copy(os.path.join(here, "cases", "fsi_gate", "gate.boid"), tmp)
+        generate_case(os.path.join(tmp, "gate"))
     cfg, grid = load_case(
         os.path.join(here, "goldens", "gate", "gate.data"),
         os.path.join(tmp, "gate.grid"), scene="dam",
-        numerics=NumericsConfig(dtype="float64", backend="pallas_t"))
+        numerics=NumericsConfig(dtype="float64", backend=backend))
     sim = Simulation(cfg, grid)
+    pw.reset_launch_counts()
     state, done, ok = sim.run_chunk_guarded(sim.state0, 100)
     if (done, ok) != (100, True):
-        fail(f"gate golden: guarded chunk stopped after {done} steps")
+        fail(f"gate golden ({backend}): guarded chunk stopped after {done} "
+             f"steps")
+    if pw.launch_counts != expect_counts(backend, 100, 0):
+        fail(f"gate golden ({backend}): launch counts {pw.launch_counts}")
     out = to_numpy(state, sim.n)
     with gzip.open(os.path.join(here, "goldens", "gate",
                                 "gate100.prof.gz"), "rt") as f:
@@ -625,7 +894,8 @@ def check_gate_golden(tmp: str):
         gold = np.loadtxt(f)
     dp = float(np.abs(out["pos"][:, :2] - gold[:, 1:3]).max())
     if not dp < 2.0e-6:
-        fail(f"gate golden: position differs by {dp:.3e} m after 100 steps")
+        fail(f"gate golden ({backend}): position differs by {dp:.3e} m after "
+             f"100 steps")
     return sim.n, dp
 
 
@@ -645,9 +915,10 @@ def _vtk_block(data: bytes, header: bytes, n: int, skip_lines: int):
     return np.loadtxt(io.BytesIO(data[at:at + 64 * n]), max_rows=n, ndmin=2)
 
 
-def run_cli_path(tmp: str):
+def run_cli_path(tmp: str, backend: str, cli_steps: int):
     """Write the 1M bench scene as files, run the command line on them on
-    the card, and check what it wrote."""
+    the card with ``--backend`` for one output interval of ``cli_steps``
+    steps, and check what it wrote."""
     import torch
     from particlemethod_fsi_tpu_torch import cli
     from particlemethod_fsi_tpu_torch.io import native
@@ -656,13 +927,15 @@ def run_cli_path(tmp: str):
         GridData, read_grid_file, write_grid_file)
     from particlemethod_fsi_tpu_torch.io.vtk_writer import write_vtk_file
     from particlemethod_fsi_tpu_torch.models import bench_config, bench_grid
-    from particlemethod_fsi_tpu_torch.ops import windows_t as pwt
+    from particlemethod_fsi_tpu_torch.ops import windows as pw
     from particlemethod_fsi_tpu_torch.solver import Simulation, load_case
     from particlemethod_fsi_tpu_torch.state import to_numpy
 
+    tmp = os.path.join(tmp, backend)
+    os.makedirs(tmp)
     j = lambda name: os.path.join(tmp, name)  # noqa: E731
-    interval = CLI_STEPS * 1e-4
-    want_cfg = bench_config().replace(
+    interval = cli_steps * 1e-4
+    want_cfg = bench_config(backend=backend).replace(
         output_interval=interval, vtk_output_interval=interval,
         end_time=interval)
     grid0 = bench_grid(N_SIDE)
@@ -688,18 +961,18 @@ def run_cli_path(tmp: str):
 
     argv = [j("bench.data"), j("bench.grid"), j("bench%03d.prof"),
             j("bench%03d.vtk"), j("bench.log"), "4", "--scene", "dam",
-            "--backend", "pallas_t", "--rebuild-margin", "0.5", "--dtype",
+            "--backend", backend, "--rebuild-margin", "0.5", "--dtype",
             "float32", "--metrics", j("metrics.jsonl")]
-    pwt.reset_launch_counts()
+    pw.reset_launch_counts()
     t0 = time.time()
     rc = cli.main(argv)
     torch.cuda.synchronize()
     cli_s = time.time() - t0
-    counts = dict(pwt.launch_counts)
+    counts = dict(pw.launch_counts)
     if rc != 0:
         fail(f"cli path: return code {rc}")
 
-    last = f"{CLI_STEPS:03d}"
+    last = f"{cli_steps:03d}"
     for name in ("bench000.prof", f"bench{last}.prof", "bench000.vtk",
                  f"bench{last}.vtk", "bench.log", "metrics.jsonl"):
         if not os.path.getsize(j(name)) > 0:
@@ -710,10 +983,9 @@ def run_cli_path(tmp: str):
     metrics = [json.loads(ln) for ln in open(j("metrics.jsonl"))]
     steps = sum(m.get("chunk", 0) for m in metrics)
     dumps = [m for m in metrics if "neighbor_max" in m]
-    if steps < CLI_STEPS or len(dumps) != 2:
+    if steps < cli_steps or len(dumps) != 2:
         fail(f"cli path: {steps} steps and {len(dumps)} dumps in the metrics")
-    want_counts = {"phase1_sweep": steps + 2, "phase2_sweep": steps + 2,
-                   "virial_sweep": 2}
+    want_counts = expect_counts(backend, steps, 2)
     if counts != want_counts:
         fail(f"cli path: launch counts {counts}, expected {want_counts}")
     for m in dumps:
@@ -728,11 +1000,11 @@ def run_cli_path(tmp: str):
     # chunk over the same steps from the same grid: written again with the
     # same writer, the bytes are equal
     sim = Simulation(cfg, grid)
-    state, done, ok = sim.run_chunk_guarded(sim.state0, CLI_STEPS)
-    if (done, ok) != (CLI_STEPS, True):
+    state, done, ok = sim.run_chunk_guarded(sim.state0, cli_steps)
+    if (done, ok) != (cli_steps, True):
         fail(f"cli path: reference chunk stopped after {done} steps")
     h = to_numpy(state, grid.n)
-    snap = GridData(time=CLI_STEPS * cfg.dt, spacing=grid.spacing,
+    snap = GridData(time=cli_steps * cfg.dt, spacing=grid.spacing,
                     domain_min=np.asarray(sim.domain_min),
                     domain_max=np.asarray(sim.domain_max), prop=h["prop"],
                     position=h["pos"], initial_position=h["pos0"],
@@ -781,7 +1053,7 @@ def run_cli_path(tmp: str):
         fail("cli path: the final .vtk differs from the diagnostics written again")
     buckets = {ln.split(":")[0]: float(ln.split(":")[1].split()[0])
                for ln in log.splitlines() if "[sec]" in ln}
-    print(f"cli path: {n} particles, {steps} steps, return code 0 in "
+    print(f"cli path ({backend}): {n} particles, {steps} steps, return code 0 in "
           f"{cli_s:.1f} s; launches {json.dumps(counts)}; writer "
           f"{writer} ({native.writer_name()}); .grid {grid_mb:.0f} MB written "
           f"in {write_s:.2f} s and read by load_case in {read_s:.2f} s; "
@@ -791,6 +1063,94 @@ def run_cli_path(tmp: str):
           f"{dumps[1]['window_len']}; the log's buckets [s]: "
           + json.dumps(buckets))
     return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the packed-bf16 throughput probe (kernel 7)
+# ---------------------------------------------------------------------------
+
+
+def check_microbench() -> dict:
+    """Kernel 7 against its plain twin on the card, 64 trips over the
+    probe's tile, both rounding each operation in the same place: float32
+    rtol 1e-5 and bf16 1e-4 of the largest row sum (the rows summed in
+    another order; in bf16 also an rsqrt that rounds to the other bf16
+    neighbour).  The bf16 instance must also stand farther than its bar from
+    the chain in float32 on the float32 tile and on the tile rounded to bf16
+    (a chain rounded once at its end, or not at all, lies 4e-3 to 8e-3 of the
+    row sum from the twin): a kernel that does not round each operation in
+    bf16 fails here."""
+    import torch
+    from particlemethod_fsi_tpu_torch.tools import bf16_microbench as mb
+
+    x, y = mb.inputs()
+    errs = {}
+    for dtype, bar in ((torch.float32, 1e-5), (torch.bfloat16, 1e-4)):
+        got = mb.run(x, y, dtype, 64)
+        want = mb.run_plain(x, y, dtype, 64)
+        torch.cuda.synchronize()
+        scale = float(want.abs().max())
+        err = float((got - want).abs().max())
+        name = str(dtype).split(".")[1]
+        if not (scale > 0 and torch.allclose(got, want, rtol=bar,
+                                             atol=bar * scale)):
+            fail(f"bf16_microbench {name}: max abs err {err:.3e} against "
+                 f"scale {scale:.3e}")
+        errs[name] = err / scale
+    for form, (xf, yf) in (("float32", (x, y)),
+                           ("rounded_once", (x.bfloat16().float(),
+                                             y.bfloat16().float()))):
+        other = mb.run_plain(xf, yf, torch.float32, 64)
+        dist = float((got - other).abs().max()) / scale
+        if not dist > 1e-4:
+            fail(f"bf16_microbench bfloat16: within {dist:.3e} of the chain "
+                 f"in float32 ({form}), inside its bar: it does not round "
+                 f"in bf16")
+        errs[f"bfloat16_from_{form}"] = dist
+    return errs
+
+
+def time_microbench() -> dict:
+    """The probe's own run (the element throughput of float32 and of packed
+    bf16, from the slope between ``LO`` and ``HI`` trips) with its launch
+    count, then kernel 7's entry of the ``kernels`` line: the float32
+    instance at the probe's 512 trips, bound by operations."""
+    import torch
+    from particlemethod_fsi_tpu_torch.tools import bf16_microbench as mb
+
+    x, y = mb.inputs()
+    mb.launch_counts["bf16_microbench"] = 0
+    thr = {name: mb.throughput(x, y, dtype) for name, dtype in
+           (("float32", torch.float32), ("bfloat16", torch.bfloat16))}
+    launches = mb.launch_counts["bf16_microbench"]
+
+    def run(dtype=torch.float32):
+        return mb.run(x, y, dtype, mb.REPS)
+
+    plain_ms = time_ms(lambda: mb.run_plain(x, y, torch.float32, mb.REPS), 1)
+    err = float((run() - mb.run_plain(x, y, torch.float32, mb.REPS))
+                .abs().max())
+    ms, cold = time_ms(run, 20), time_ms_cold(run, 5)
+    bf16_ms = time_ms(lambda: run(torch.bfloat16), 20)
+    elems = mb.B * mb.W
+    row = _row("bf16_microbench", "bf16_microbench.cu",
+               "tools/bf16_microbench.py:55", err, ms, cold, plain_ms,
+               2 * elems * 4 + mb.B * 4,
+               mb.OPS_PER_ELEMENT * elems * mb.REPS)
+    row["launches"] = launches
+    row.update(bf16_ms=bf16_ms,
+               elements_per_s_float32=thr["float32"]["elements_per_s"],
+               elements_per_s_bfloat16=thr["bfloat16"]["elements_per_s"],
+               bf16_over_float32=(thr["bfloat16"]["elements_per_s"]
+                                  / thr["float32"]["elements_per_s"]))
+    print(f"probe (kernel 7), [{mb.B}, {mb.W}] tile, slope between {mb.LO} "
+          f"and {mb.HI} trips: float32 {thr['float32']['elements_per_s'] / 1e9:.1f} "
+          f"Gelem/s ({thr['float32']['ns_per_trip']:.3f} ns a trip), packed "
+          f"bf16 {thr['bfloat16']['elements_per_s'] / 1e9:.1f} Gelem/s "
+          f"({thr['bfloat16']['ns_per_trip']:.3f} ns a trip): bf16 / float32 "
+          f"= {row['bf16_over_float32']:.3f}; one launch of {mb.REPS} trips "
+          f"{ms:.4f} ms float32, {bf16_ms:.4f} ms bf16; launches {launches}")
+    return row
 
 
 def main() -> int:
@@ -826,38 +1186,70 @@ def main() -> int:
     device = torch.device("cuda", 0)
     worst = check_small_cases(device)
     print(f"kernels, double instances on {len(SMALL_CASES)} small seeded "
-          f"frames (every branch), rtol 1e-12: ok; largest error over row "
-          f"scale: " + json.dumps(worst))
+          f"frames (every branch, 2-D and 3-D), rtol 1e-12: ok; largest "
+          f"error over row scale: " + json.dumps(worst))
+    pads_err = check_pads_in_windows(device)
+    print(f"kernels 4-6 with every pad inside the fluid and in every window "
+          f"(double): ok; largest error over row scale {pads_err:.3e}")
+    probe_err = check_microbench()
+    print("probe (kernel 7) against its twin, 64 trips: ok; largest error "
+          "over the largest row sum: " + json.dumps(probe_err))
     if "--kernels-only" in sys.argv[1:]:
         print(card_line)
         return 0
 
-    pos_err, rebuilds = check_small_scene()
-    print(f"small coupled scene (880 particles, float64, 10 steps): card "
-          f"against CPU ok, max |pos| difference {pos_err:.3e}, rebuilds "
-          f"{rebuilds}")
+    for backend in ("pallas_t", "pallas"):
+        pos_err, rebuilds = check_small_scene(backend)
+        print(f"small coupled scene ({backend}; 880 particles, float64, 10 "
+              f"steps): card against CPU ok, max |pos| difference "
+              f"{pos_err:.3e}, rebuilds {rebuilds}")
 
     tmp = tempfile.mkdtemp(prefix="fsi_smoke_")
     try:
-        n_gate, gate_err = check_gate_golden(tmp)
-        print(f"gate case ({n_gate} particles, float64, 100 steps on the "
-              f"card) against the reference binary's golden: max position "
-              f"difference {gate_err:.3e} m (bar 2.0e-6)")
+        for backend in ("pallas_t", "pallas"):
+            n_gate, gate_err = check_gate_golden(tmp, backend)
+            print(f"gate case ({backend}; {n_gate} particles, float64, 100 "
+                  f"steps on the card) against the reference binary's "
+                  f"golden: max position difference {gate_err:.3e} m (bar "
+                  f"2.0e-6)")
 
-        sim, state, counts = run_main_path()
+        # the field-major backend: kernels 1-3
+        sim, state, counts = run_main_path("pallas_t")
         rows = check_and_time_main_frame(sim, state)
-        state, _ = time_guarded_and_diagnostics(sim, state)
+        state = time_guarded(sim, state)
+        diag_counts = time_diagnostics(sim, state, "pallas_t")
         del sim, state
         torch.cuda.empty_cache()
-        cli_counts = run_cli_path(tmp)
+
+        # the row-major backend: kernels 4-6
+        sim, state, rows_counts = run_main_path("pallas")
+        rows += check_and_time_rows_frame(sim, state)
+        rows_diag_counts = time_diagnostics(sim, state, "pallas")
+        del sim, state
+        torch.cuda.empty_cache()
+        cells, _ = check_huge_frame_route()
+        print(f"frames of 2^24 cells or more: {cells} cells, pallas_t "
+              f"resolved to the row-major kernels, 3 steps bit-equal to "
+              f"backend='pallas'")
+
+        cli_counts = run_cli_path(tmp, "pallas_t", CLI_STEPS)
+        torch.cuda.empty_cache()
+        cli_counts.update({k: v for k, v in run_cli_path(
+            tmp, "pallas", CLI_ROWS_STEPS).items() if k.endswith("_rows")})
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    # launches: of the step path's run for the two step kernels, of the
-    # command-line path's run for the virial (one per .vtk dump); the
-    # command-line path's counts of all three stand beside them
+    rows.append(time_microbench())
+    # launches: of each backend's step path for the step kernels, of its
+    # diagnostics call for the virial; the command-line path's counts stand
+    # beside them
     for row in rows:
-        row["launches"] = counts[row["name"]] or cli_counts[row["name"]]
-        row["launches_cli_path"] = cli_counts[row["name"]]
+        name = row["name"]
+        if name == "bf16_microbench":
+            continue
+        path = counts if name.endswith("_sweep") else rows_counts
+        diag = diag_counts if name.endswith("_sweep") else rows_diag_counts
+        row["launches"] = path[name] or diag[name]
+        row["launches_cli_path"] = cli_counts[name]
 
     print(card_line)
     print(json.dumps({"kernels": rows}))

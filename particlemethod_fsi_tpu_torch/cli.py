@@ -97,8 +97,11 @@ def build_parser():
                         "command fails, it never falls back to the CPU)")
     p.add_argument("--backend", default=None,
                    choices=["auto", "pallas_t", "pallas", "packed", "gather"],
-                   help="pairwise engine backend (only the window sweep, "
-                        "'auto' or 'pallas_t', is ported; the others raise)")
+                   help="pairwise engine backend: the window sweeps "
+                        "'pallas_t' (field-major kernels; 'auto' selects "
+                        "it) and 'pallas' (row-major kernels, which also "
+                        "take any frame of 2^24 cells or more) run; "
+                        "'packed' and 'gather' are not ported and raise")
     p.add_argument("--rebuild-margin", type=float, default=None,
                    help="C8 knob: widen the candidate support by this many "
                         "l0 and skip frame rebuilds while displacement < "

@@ -140,9 +140,11 @@ class NumericsConfig:
     each means for the CUDA window-sweep kernels is said beside it."""
 
     dtype: str = "float32"  # compute dtype: "float32" (the card) or "float64" (CPU tests)
-    # pairwise backend.  This port implements the window sweep over the
-    # cell-sorted frame ("pallas_t" in the JAX package); "auto" selects it.
-    # "pallas", "packed" and "gather" are not ported yet and raise.
+    # pairwise backend.  This port implements the two window sweeps over the
+    # cell-sorted frame: "pallas_t" (field-major kernels; "auto" selects it,
+    # and a frame of 2^24 cells or more goes on to "pallas") and "pallas"
+    # (row-major kernels).  "packed" and "gather" are not ported yet and
+    # raise.
     backend: str = "auto"
     # receivers per window-table row = threads per CUDA thread block (one
     # thread per receiver).  None = 64.

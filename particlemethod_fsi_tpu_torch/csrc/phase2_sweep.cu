@@ -1,14 +1,22 @@
 // Phase-2 window sweep: the pairwise force on each receiver -- pressure-P
 // (P_i + P_j) dwp with the FSI interface rule (structure receivers skip
-// structure senders), pressure-A, viscosity with the harmonic mean
-// mu_h = 2 / (1/mu_i + 1/mu_j) from an inverse-viscosity field, and the
-// diffuse-interface term.
+// structure senders), pressure-A, viscosity with a harmonic-mean mu_h, and
+// the diffuse-interface term.
 //
-// Replaces the TPU kernel particlemethod_fsi_tpu/ops/pallas_windows_t.py
-// `_phase2_kernel` (reached through `phase2_forces_pallas_t` -> `_sweep_t`).
-// Every branch of that kernel is here: planar or not and surface tension or
-// not as template parameters; per-pair interaction ratios and non-uniform
-// radii as launch parameters (uniform branches).
+// One template, two TPU kernels, two C entry points:
+// * fsi_phase2_sweep (ROWS = false) replaces
+//   particlemethod_fsi_tpu/ops/pallas_windows_t.py `_phase2_kernel` (reached
+//   through `phase2_forces_pallas_t` -> `_sweep_t`; kernel 2): key ring,
+//   mu_h = 2 / (1/mu_i + 1/mu_j) from an inverse-viscosity field;
+// * fsi_phase2_rows (ROWS = true) replaces
+//   particlemethod_fsi_tpu/ops/pallas_pairwise.py `_phase2_kernel` (reached
+//   through `phase2_forces_pallas`; kernel 5): the ring from positions, pad
+//   senders and j == i rejected, pairs within the support only (see
+//   window_sweep.cuh), and mu_h = 2 mu_i mu_j / (mu_i + mu_j) from mu itself
+//   (0 where that sum is not positive).
+// Every branch of both is here: planar or not, surface tension or not and
+// the pair rule as template parameters; per-pair interaction ratios and
+// non-uniform radii as launch parameters (uniform branches).
 //
 // Bound on an H100: at the flags of the planar scene without surface tension
 // the function needs 40 bytes a particle in float32 (x, y, vx, vy, pressure
@@ -22,7 +30,8 @@
 // goes.  What the design does about it: sender tiles staged once per block
 // in shared memory and read as broadcasts, ring and squared-radius pre-tests
 // before the rsqrt, constants folded on the host.  Cutting the candidates
-// per receiver is left to later work.
+// per receiver is left to later work.  The row-major rule stages a linear
+// cell index a sender where the key rule stages the key.
 #include "window_sweep.cuh"
 
 enum {
@@ -36,12 +45,13 @@ template <typename T>
 struct Phase2Params {
   const T* pos;         // [N,3]
   const T* vel;         // [N,3]
-  const int* key;       // [N]
+  const int* key;       // [N] (field-major rule only)
   const int* prop;      // [N]
   const T* pp;          // [N] pressure P
   const T* pa;          // [N] pressure A (read with surface tension only)
   const T* gc;          // [N,3] gravity centre (surface tension only)
-  const T* invmu;       // [N] 1/mu, inf where mu == 0
+  const T* visc;        // [N] 1/mu, inf where mu == 0 (field-major rule);
+                        // mu itself (row-major rule)
   const int* win_start; // [nblocks, n_off]
   const int* win_len;   // [nblocks, n_off]
   T* out;               // [3, N]
@@ -53,18 +63,21 @@ struct Phase2Params {
   T cof_a[FSI_TYPE_COUNT];
   int uniform_ratio;
   int uniform_radii;
+  T support2;           // row-major rule only
+  FsiRows<T> g;         // row-major rule only
 };
 
-template <typename T, bool PLANAR, bool ST>
+template <typename T, bool PLANAR, bool ST, bool ROWS>
 __global__ void phase2_sweep_kernel(const Phase2Params<T> p) {
   __shared__ T s_pos[FSI_TILE * 3];
   __shared__ T s_vel[FSI_TILE * 3];
   __shared__ T s_gc[ST ? FSI_TILE * 3 : 1];
   __shared__ T s_pp[FSI_TILE];
   __shared__ T s_pa[ST ? FSI_TILE : 1];
-  __shared__ T s_invmu[FSI_TILE];
-  __shared__ int s_key[FSI_TILE];
+  __shared__ T s_visc[FSI_TILE];
+  __shared__ int s_key[ROWS ? 1 : FSI_TILE];
   __shared__ int s_prop[FSI_TILE];
+  __shared__ int s_lin[ROWS ? FSI_TILE : 1];
   __shared__ T s_ratio[FSI_TYPE_COUNT * FSI_TYPE_COUNT];
 
   const int b = blockIdx.x;
@@ -77,12 +90,18 @@ __global__ void phase2_sweep_kernel(const Phase2Params<T> p) {
 
   const T xi = p.pos[3 * i], yi = p.pos[3 * i + 1], zi = p.pos[3 * i + 2];
   const T vxi = p.vel[3 * i], vyi = p.vel[3 * i + 1], vzi = p.vel[3 * i + 2];
-  const int key_i = p.key[i];
+  const int key_i = ROWS ? 0 : p.key[i];
   const int prop_i = p.prop[i];
   const int type_i = fsi_clip_type(prop_i);
   const bool rs = fsi_is_structure(prop_i);
   const T pp_i = p.pp[i];
-  const T invmu_i = p.invmu[i];
+  const T visc_i = p.visc[i];
+  int cxi = 0, cyi = 0, czi = 0;
+  if (ROWS) {
+    cxi = fsi_cell(xi, p.g.dmin[0], p.g.cw[0], p.g.ncell[0]);
+    cyi = fsi_cell(yi, p.g.dmin[1], p.g.cw[1], p.g.ncell[1]);
+    if (p.g.three_d) czi = fsi_cell(zi, p.g.dmin[2], p.g.cw[2], p.g.ncell[2]);
+  }
   T pa_i = 0, gcx_i = 0, gcy_i = 0, gcz_i = 0, a_i = 0;
   if (ST) {
     pa_i = p.pa[i];
@@ -106,6 +125,7 @@ __global__ void phase2_sweep_kernel(const Phase2Params<T> p) {
     const int start = p.win_start[b * p.n_off + o];
     const int len = p.win_len[b * p.n_off + o];
     const int ring_centre = key_i + p.offs[o];
+    const FsiRing ring = ROWS ? fsi_ring(cxi, cyi, czi, o, p.g) : FsiRing{};
     for (int t0 = 0; t0 < len; t0 += FSI_TILE) {
       const int cnt = min(FSI_TILE, len - t0);
       const int row0 = start + t0;
@@ -113,8 +133,12 @@ __global__ void phase2_sweep_kernel(const Phase2Params<T> p) {
       fsi_stage(s_pos, p.pos + 3 * (size_t)row0, 3 * cnt);
       fsi_stage(s_vel, p.vel + 3 * (size_t)row0, 3 * cnt);
       fsi_stage(s_pp, p.pp + row0, cnt);
-      fsi_stage(s_invmu, p.invmu + row0, cnt);
-      fsi_stage(s_key, p.key + row0, cnt);
+      fsi_stage(s_visc, p.visc + row0, cnt);
+      if (ROWS) {
+        fsi_stage_lin(s_lin, p.pos, p.prop, row0, cnt, p.g);
+      } else {
+        fsi_stage(s_key, p.key + row0, cnt);
+      }
       fsi_stage(s_prop, p.prop + row0, cnt);
       if (ST) {
         fsi_stage(s_pa, p.pa + row0, cnt);
@@ -123,8 +147,12 @@ __global__ void phase2_sweep_kernel(const Phase2Params<T> p) {
       __syncthreads();
 
       for (int j = 0; j < cnt; ++j) {
-        const int dk = s_key[j] - ring_centre;
-        if (dk < -1 || dk > 1) continue;
+        if (ROWS) {
+          if (!fsi_in_ring(s_lin[j], ring) || row0 + j == i) continue;
+        } else {
+          const int dk = s_key[j] - ring_centre;
+          if (dk < -1 || dk > 1) continue;
+        }
         const T dx = s_pos[3 * j] - xi;
         const T dy = s_pos[3 * j + 1] - yi;
         T rij2 = dx * dx + dy * dy;
@@ -135,6 +163,7 @@ __global__ void phase2_sweep_kernel(const Phase2Params<T> p) {
         }
         // every family mask is the strict radius^2 - rij2 > 0
         if (!(rij2 > T(0)) || !(rij2 < reach2)) continue;
+        if (ROWS && rij2 > p.support2) continue;
         const T inv_r = fsi_rsqrt(rij2);
         const T rij = rij2 * inv_r;
         const T ex = dx * inv_r, ey = dy * inv_r;
@@ -177,8 +206,9 @@ __global__ void phase2_sweep_kernel(const Phase2Params<T> p) {
           }
         }
 
-        // viscosity: a zero viscosity makes its inverse infinite and mu_h
-        // exactly 0
+        // viscosity: field-major, a zero viscosity makes its inverse
+        // infinite and mu_h exactly 0; row-major, mu_h is 0 unless
+        // mu_i + mu_j > 0
         {
           bool m_v = m_p;
           T omq_v = omq_p;
@@ -189,7 +219,13 @@ __global__ void phase2_sweep_kernel(const Phase2Params<T> p) {
           if (m_v && !rs) {
             T udote = (s_vel[3 * j] - vxi) * ex + (s_vel[3 * j + 1] - vyi) * ey;
             if (!PLANAR) udote += (s_vel[3 * j + 2] - vzi) * ez;
-            const T mu_h = T(2) / (invmu_i + s_invmu[j]);
+            T mu_h;
+            if (ROWS) {
+              const T den = visc_i + s_visc[j];
+              mu_h = den > T(0) ? T(2) * visc_i * s_visc[j] / den : T(0);
+            } else {
+              mu_h = T(2) / (visc_i + s_visc[j]);
+            }
             const T dwv = p.c[P2_DWV_COEF] * omq_v;
             radial += p.c[P2_C_V] * mu_h * udote * (-dwv) * inv_r * volume;
           }
@@ -239,12 +275,33 @@ __global__ void phase2_sweep_kernel(const Phase2Params<T> p) {
   p.out[2 * n + i] = fz;
 }
 
+template <typename T, bool ROWS>
+static void dispatch_phase2(const Phase2Params<T>& p, int block, int planar,
+                            int surface_tension, cudaStream_t stream) {
+  const dim3 grid(p.n / block), threads(block);
+  if (planar) {
+    if (surface_tension)
+      phase2_sweep_kernel<T, true, true, ROWS><<<grid, threads, 0, stream>>>(p);
+    else
+      phase2_sweep_kernel<T, true, false, ROWS><<<grid, threads, 0, stream>>>(p);
+  } else {
+    if (surface_tension)
+      phase2_sweep_kernel<T, false, true, ROWS><<<grid, threads, 0, stream>>>(p);
+    else
+      phase2_sweep_kernel<T, false, false, ROWS><<<grid, threads, 0, stream>>>(p);
+  }
+}
+
+// offs_yz == nullptr selects the field-major rule (keys, offs); otherwise
+// the row-major rule (offs_yz, geom = dmin[3] + cw[3], ncell[3], support2).
 template <typename T>
 static int launch_phase2(const void* pos, const void* vel, const void* key,
                          const void* prop, const void* pp, const void* pa,
-                         const void* gc, const void* invmu,
+                         const void* gc, const void* visc,
                          const void* win_start, const void* win_len, void* out,
                          int n, int block, int n_off, const int* offs,
+                         const int* offs_yz, const double* geom,
+                         const int* ncell, double support2,
                          const double* consts, const double* ratio,
                          const double* cof_a, int planar, int surface_tension,
                          int uniform_ratio, int uniform_radii,
@@ -257,40 +314,41 @@ static int launch_phase2(const void* pos, const void* vel, const void* key,
   p.pp = static_cast<const T*>(pp);
   p.pa = static_cast<const T*>(pa);
   p.gc = static_cast<const T*>(gc);
-  p.invmu = static_cast<const T*>(invmu);
+  p.visc = static_cast<const T*>(visc);
   p.win_start = static_cast<const int*>(win_start);
   p.win_len = static_cast<const int*>(win_len);
   p.out = static_cast<T*>(out);
   p.n = n;
   p.n_off = n_off;
-  for (int o = 0; o < n_off; ++o) p.offs[o] = offs[o];
+  for (int o = 0; o < n_off; ++o) p.offs[o] = offs ? offs[o] : 0;
   for (int k = 0; k < P2_NCONST; ++k) p.c[k] = static_cast<T>(consts[k]);
   for (int k = 0; k < FSI_TYPE_COUNT * FSI_TYPE_COUNT; ++k)
     p.ratio[k] = static_cast<T>(ratio[k]);
   for (int k = 0; k < FSI_TYPE_COUNT; ++k) p.cof_a[k] = static_cast<T>(cof_a[k]);
   p.uniform_ratio = uniform_ratio;
   p.uniform_radii = uniform_radii;
-
-  const dim3 grid(n / block), threads(block);
-  if (planar) {
-    if (surface_tension)
-      phase2_sweep_kernel<T, true, true><<<grid, threads, 0, stream>>>(p);
-    else
-      phase2_sweep_kernel<T, true, false><<<grid, threads, 0, stream>>>(p);
+  p.support2 = static_cast<T>(support2);
+  if (offs_yz) {
+    fsi_rows_fill(&p.g, n_off, offs_yz, geom, ncell);
+    dispatch_phase2<T, true>(p, block, planar, surface_tension, stream);
   } else {
-    if (surface_tension)
-      phase2_sweep_kernel<T, false, true><<<grid, threads, 0, stream>>>(p);
-    else
-      phase2_sweep_kernel<T, false, false><<<grid, threads, 0, stream>>>(p);
+    dispatch_phase2<T, false>(p, block, planar, surface_tension, stream);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-// Plain C entry point.  is_double selects the instance; all pointers are
-// device pointers except offs, consts (P2_NCONST doubles), ratio (36 doubles)
-// and cof_a (6 doubles), which are host arrays.  pa and gc may be null
-// without surface tension.  Returns cudaGetLastError() of the launch
-// (0 = success), or -1 for arguments the kernel does not take.
+static bool phase2_args_ok(int n, int block, int n_off, int surface_tension,
+                           const void* pa, const void* gc) {
+  return block > 0 && block <= 1024 && n % block == 0 && n_off > 0 &&
+         n_off <= FSI_MAX_OFFS &&
+         !(surface_tension && (pa == nullptr || gc == nullptr));
+}
+
+// Plain C entry point of kernel 2 (field-major rule).  is_double selects the
+// instance; all pointers are device pointers except offs, consts (P2_NCONST
+// doubles), ratio (36 doubles) and cof_a (6 doubles), which are host arrays.
+// pa and gc may be null without surface tension.  Returns cudaGetLastError()
+// of the launch (0 = success), or -1 for arguments the kernel does not take.
 extern "C" int fsi_phase2_sweep(int is_double, const void* pos,
                                 const void* vel, const void* key,
                                 const void* prop, const void* pp,
@@ -302,20 +360,49 @@ extern "C" int fsi_phase2_sweep(int is_double, const void* pos,
                                 const double* cof_a, int planar,
                                 int surface_tension, int uniform_ratio,
                                 int uniform_radii, void* stream) {
-  if (block <= 0 || block > 1024 || n % block != 0 || n_off <= 0 ||
-      n_off > FSI_MAX_OFFS)
-    return -1;
-  if (surface_tension && (pa == nullptr || gc == nullptr)) return -1;
+  if (!phase2_args_ok(n, block, n_off, surface_tension, pa, gc)) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_double)
     return launch_phase2<double>(pos, vel, key, prop, pp, pa, gc, invmu,
                                  win_start, win_len, out, n, block, n_off,
-                                 offs, consts, ratio, cof_a, planar,
-                                 surface_tension, uniform_ratio, uniform_radii,
-                                 s);
+                                 offs, nullptr, nullptr, nullptr, 0.0, consts,
+                                 ratio, cof_a, planar, surface_tension,
+                                 uniform_ratio, uniform_radii, s);
   return launch_phase2<float>(pos, vel, key, prop, pp, pa, gc, invmu,
                               win_start, win_len, out, n, block, n_off, offs,
-                              consts, ratio, cof_a, planar, surface_tension,
+                              nullptr, nullptr, nullptr, 0.0, consts, ratio,
+                              cof_a, planar, surface_tension, uniform_ratio,
+                              uniform_radii, s);
+}
+
+// Plain C entry point of kernel 5 (row-major rule): mu is the viscosity
+// itself; offs_yz (2 n_off ints), geom (domain_min and cell_width, 6
+// doubles) and ncell (3 ints) are host arrays, support2 the squared frame
+// support.  Otherwise as fsi_phase2_sweep, without the key.
+extern "C" int fsi_phase2_rows(int is_double, const void* pos, const void* vel,
+                               const void* prop, const void* pp,
+                               const void* pa, const void* gc, const void* mu,
+                               const void* win_start, const void* win_len,
+                               void* out, int n, int block, int n_off,
+                               const int* offs_yz, const double* geom,
+                               const int* ncell, const double* consts,
+                               const double* ratio, const double* cof_a,
+                               double support2, int planar,
+                               int surface_tension, int uniform_ratio,
+                               int uniform_radii, void* stream) {
+  if (!phase2_args_ok(n, block, n_off, surface_tension, pa, gc)) return -1;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_double)
+    return launch_phase2<double>(pos, vel, nullptr, prop, pp, pa, gc, mu,
+                                 win_start, win_len, out, n, block, n_off,
+                                 nullptr, offs_yz, geom, ncell, support2,
+                                 consts, ratio, cof_a, planar,
+                                 surface_tension, uniform_ratio,
+                                 uniform_radii, s);
+  return launch_phase2<float>(pos, vel, nullptr, prop, pp, pa, gc, mu,
+                              win_start, win_len, out, n, block, n_off,
+                              nullptr, offs_yz, geom, ncell, support2, consts,
+                              ratio, cof_a, planar, surface_tension,
                               uniform_ratio, uniform_radii, s);
 }
 

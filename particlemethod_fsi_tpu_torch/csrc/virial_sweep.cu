@@ -4,11 +4,22 @@
 // (calculateVirialStressAtParticle, src/main.cpp:3077-3318).  Runs once per
 // .vtk dump (output-time diagnostics), not in the time step.
 //
-// Replaces the TPU kernel particlemethod_fsi_tpu/ops/pallas_windows_t.py
-// `_virial_kernel_t` (reached through `virial_pallas_t` -> `_sweep_t`).
-// Every branch of that kernel is here: planar or not and surface tension or
-// not as template parameters; per-pair interaction ratios and non-uniform
-// radii as launch parameters (uniform branches).  Unlike phase 2 there is no
+// One template, two TPU kernels, two C entry points:
+// * fsi_virial_sweep (ROWS = false) replaces
+//   particlemethod_fsi_tpu/ops/pallas_windows_t.py `_virial_kernel_t`
+//   (reached through `virial_pallas_t` -> `_sweep_t`; kernel 3): key ring,
+//   mu_h = 2 / (1/mu_i + 1/mu_j) where that inverse sum is finite and
+//   positive, else 0;
+// * fsi_virial_rows (ROWS = true) replaces
+//   particlemethod_fsi_tpu/ops/pallas_pairwise.py `_virial_kernel` (reached
+//   through `virial_pallas`; kernel 6): the ring from positions, pad senders
+//   and j == i rejected, pairs within the support only (see
+//   window_sweep.cuh), and mu_h = 2 mu_i mu_j / (mu_i + mu_j) from mu itself
+//   (0 where that sum is not positive).
+// Every branch of both is here: planar or not, surface tension or not and
+// the pair rule as template parameters; per-pair interaction ratios and
+// non-uniform radii as launch parameters (uniform branches).  Unlike phase
+// 2 there is no
 // structure rule: a structure receiver takes every family from every sender.
 // The output is the raw sums, [9, N] row-major components (3a + b) in sorted
 // order; the division by the particle volume and the trace pressure stay in
@@ -41,12 +52,13 @@ template <typename T>
 struct VirialParams {
   const T* pos;         // [N,3]
   const T* vel;         // [N,3]
-  const int* key;       // [N]
+  const int* key;       // [N] (field-major rule only)
   const int* prop;      // [N]
   const T* pp;          // [N] pressure P (receiver side only)
   const T* pa;          // [N] pressure A (receiver side, surface tension only)
   const T* gc;          // [N,3] gravity centre (receiver side, surface tension)
-  const T* invmu;       // [N] 1/mu, inf where mu == 0
+  const T* visc;        // [N] 1/mu, inf where mu == 0 (field-major rule);
+                        // mu itself (row-major rule)
   const int* win_start; // [nblocks, n_off]
   const int* win_len;   // [nblocks, n_off]
   T* out;               // [9, N]
@@ -58,15 +70,18 @@ struct VirialParams {
   T cof_a[FSI_TYPE_COUNT];
   int uniform_ratio;
   int uniform_radii;
+  T support2;           // row-major rule only
+  FsiRows<T> g;         // row-major rule only
 };
 
-template <typename T, bool PLANAR, bool ST>
+template <typename T, bool PLANAR, bool ST, bool ROWS>
 __global__ void virial_sweep_kernel(const VirialParams<T> p) {
   __shared__ T s_pos[FSI_TILE * 3];
   __shared__ T s_vel[FSI_TILE * 3];
-  __shared__ T s_invmu[FSI_TILE];
-  __shared__ int s_key[FSI_TILE];
+  __shared__ T s_visc[FSI_TILE];
+  __shared__ int s_key[ROWS ? 1 : FSI_TILE];
   __shared__ int s_prop[ST ? FSI_TILE : 1];
+  __shared__ int s_lin[ROWS ? FSI_TILE : 1];
   __shared__ T s_ratio[FSI_TYPE_COUNT * FSI_TYPE_COUNT];
 
   const int b = blockIdx.x;
@@ -79,10 +94,16 @@ __global__ void virial_sweep_kernel(const VirialParams<T> p) {
 
   const T xi = p.pos[3 * i], yi = p.pos[3 * i + 1], zi = p.pos[3 * i + 2];
   const T vxi = p.vel[3 * i], vyi = p.vel[3 * i + 1], vzi = p.vel[3 * i + 2];
-  const int key_i = p.key[i];
+  const int key_i = ROWS ? 0 : p.key[i];
   const int type_i = fsi_clip_type(p.prop[i]);
   const T pp_i = p.pp[i];
-  const T invmu_i = p.invmu[i];
+  const T visc_i = p.visc[i];
+  int cxi = 0, cyi = 0, czi = 0;
+  if (ROWS) {
+    cxi = fsi_cell(xi, p.g.dmin[0], p.g.cw[0], p.g.ncell[0]);
+    cyi = fsi_cell(yi, p.g.dmin[1], p.g.cw[1], p.g.ncell[1]);
+    if (p.g.three_d) czi = fsi_cell(zi, p.g.dmin[2], p.g.cw[2], p.g.ncell[2]);
+  }
   T pa_i = 0, gcx_i = 0, gcy_i = 0, gcz_i = 0, a_i = 0;
   if (ST) {
     pa_i = p.pa[i];
@@ -108,20 +129,29 @@ __global__ void virial_sweep_kernel(const VirialParams<T> p) {
     const int start = p.win_start[b * p.n_off + o];
     const int len = p.win_len[b * p.n_off + o];
     const int ring_centre = key_i + p.offs[o];
+    const FsiRing ring = ROWS ? fsi_ring(cxi, cyi, czi, o, p.g) : FsiRing{};
     for (int t0 = 0; t0 < len; t0 += FSI_TILE) {
       const int cnt = min(FSI_TILE, len - t0);
       const int row0 = start + t0;
       __syncthreads();  // the previous tile is consumed
       fsi_stage(s_pos, p.pos + 3 * (size_t)row0, 3 * cnt);
       fsi_stage(s_vel, p.vel + 3 * (size_t)row0, 3 * cnt);
-      fsi_stage(s_invmu, p.invmu + row0, cnt);
-      fsi_stage(s_key, p.key + row0, cnt);
+      fsi_stage(s_visc, p.visc + row0, cnt);
+      if (ROWS) {
+        fsi_stage_lin(s_lin, p.pos, p.prop, row0, cnt, p.g);
+      } else {
+        fsi_stage(s_key, p.key + row0, cnt);
+      }
       if (ST) fsi_stage(s_prop, p.prop + row0, cnt);
       __syncthreads();
 
       for (int j = 0; j < cnt; ++j) {
-        const int dk = s_key[j] - ring_centre;
-        if (dk < -1 || dk > 1) continue;
+        if (ROWS) {
+          if (!fsi_in_ring(s_lin[j], ring) || row0 + j == i) continue;
+        } else {
+          const int dk = s_key[j] - ring_centre;
+          if (dk < -1 || dk > 1) continue;
+        }
         const T dx = s_pos[3 * j] - xi;
         const T dy = s_pos[3 * j + 1] - yi;
         T rij2 = dx * dx + dy * dy;
@@ -132,6 +162,7 @@ __global__ void virial_sweep_kernel(const VirialParams<T> p) {
         }
         // every family mask is the strict radius^2 - rij2 > 0
         if (!(rij2 > T(0)) || !(rij2 < reach2)) continue;
+        if (ROWS && rij2 > p.support2) continue;
         const T inv_r = fsi_rsqrt(rij2);
         const T rij = rij2 * inv_r;
         const T ex = dx * inv_r, ey = dy * inv_r;
@@ -163,8 +194,9 @@ __global__ void virial_sweep_kernel(const VirialParams<T> p) {
           }
         }
 
-        // viscosity, half-weighted; mu_h = 0 unless 1/mu_i + 1/mu_j is
-        // finite and positive
+        // viscosity, half-weighted; field-major, mu_h = 0 unless
+        // 1/mu_i + 1/mu_j is finite and positive; row-major, unless
+        // mu_i + mu_j > 0
         {
           bool m_v = m_p;
           T omq_v = omq_p;
@@ -175,9 +207,15 @@ __global__ void virial_sweep_kernel(const VirialParams<T> p) {
           if (m_v) {
             T udote = (s_vel[3 * j] - vxi) * ex + (s_vel[3 * j + 1] - vyi) * ey;
             if (!PLANAR) udote += (s_vel[3 * j + 2] - vzi) * ez;
-            const T inv_sum = invmu_i + s_invmu[j];
-            const T mu_h =
-                (isfinite(inv_sum) && inv_sum > T(0)) ? T(2) / inv_sum : T(0);
+            T mu_h;
+            if (ROWS) {
+              const T den = visc_i + s_visc[j];
+              mu_h = den > T(0) ? T(2) * visc_i * s_visc[j] / den : T(0);
+            } else {
+              const T inv_sum = visc_i + s_visc[j];
+              mu_h = (isfinite(inv_sum) && inv_sum > T(0)) ? T(2) / inv_sum
+                                                          : T(0);
+            }
             const T dwv = p.c[VR_DWV_COEF] * omq_v;
             const T visc = p.c[VR_C_V] * mu_h * udote * (-dwv) * inv_r * volume;
             coeff += T(0.5) * visc;
@@ -237,12 +275,33 @@ __global__ void virial_sweep_kernel(const VirialParams<T> p) {
   p.out[8 * n + i] = szz;
 }
 
+template <typename T, bool ROWS>
+static void dispatch_virial(const VirialParams<T>& p, int block, int planar,
+                            int surface_tension, cudaStream_t stream) {
+  const dim3 grid(p.n / block), threads(block);
+  if (planar) {
+    if (surface_tension)
+      virial_sweep_kernel<T, true, true, ROWS><<<grid, threads, 0, stream>>>(p);
+    else
+      virial_sweep_kernel<T, true, false, ROWS><<<grid, threads, 0, stream>>>(p);
+  } else {
+    if (surface_tension)
+      virial_sweep_kernel<T, false, true, ROWS><<<grid, threads, 0, stream>>>(p);
+    else
+      virial_sweep_kernel<T, false, false, ROWS><<<grid, threads, 0, stream>>>(p);
+  }
+}
+
+// offs_yz == nullptr selects the field-major rule (keys, offs); otherwise
+// the row-major rule (offs_yz, geom = dmin[3] + cw[3], ncell[3], support2).
 template <typename T>
 static int launch_virial(const void* pos, const void* vel, const void* key,
                          const void* prop, const void* pp, const void* pa,
-                         const void* gc, const void* invmu,
+                         const void* gc, const void* visc,
                          const void* win_start, const void* win_len, void* out,
                          int n, int block, int n_off, const int* offs,
+                         const int* offs_yz, const double* geom,
+                         const int* ncell, double support2,
                          const double* consts, const double* ratio,
                          const double* cof_a, int planar, int surface_tension,
                          int uniform_ratio, int uniform_radii,
@@ -255,41 +314,42 @@ static int launch_virial(const void* pos, const void* vel, const void* key,
   p.pp = static_cast<const T*>(pp);
   p.pa = static_cast<const T*>(pa);
   p.gc = static_cast<const T*>(gc);
-  p.invmu = static_cast<const T*>(invmu);
+  p.visc = static_cast<const T*>(visc);
   p.win_start = static_cast<const int*>(win_start);
   p.win_len = static_cast<const int*>(win_len);
   p.out = static_cast<T*>(out);
   p.n = n;
   p.n_off = n_off;
-  for (int o = 0; o < n_off; ++o) p.offs[o] = offs[o];
+  for (int o = 0; o < n_off; ++o) p.offs[o] = offs ? offs[o] : 0;
   for (int k = 0; k < VR_NCONST; ++k) p.c[k] = static_cast<T>(consts[k]);
   for (int k = 0; k < FSI_TYPE_COUNT * FSI_TYPE_COUNT; ++k)
     p.ratio[k] = static_cast<T>(ratio[k]);
   for (int k = 0; k < FSI_TYPE_COUNT; ++k) p.cof_a[k] = static_cast<T>(cof_a[k]);
   p.uniform_ratio = uniform_ratio;
   p.uniform_radii = uniform_radii;
-
-  const dim3 grid(n / block), threads(block);
-  if (planar) {
-    if (surface_tension)
-      virial_sweep_kernel<T, true, true><<<grid, threads, 0, stream>>>(p);
-    else
-      virial_sweep_kernel<T, true, false><<<grid, threads, 0, stream>>>(p);
+  p.support2 = static_cast<T>(support2);
+  if (offs_yz) {
+    fsi_rows_fill(&p.g, n_off, offs_yz, geom, ncell);
+    dispatch_virial<T, true>(p, block, planar, surface_tension, stream);
   } else {
-    if (surface_tension)
-      virial_sweep_kernel<T, false, true><<<grid, threads, 0, stream>>>(p);
-    else
-      virial_sweep_kernel<T, false, false><<<grid, threads, 0, stream>>>(p);
+    dispatch_virial<T, false>(p, block, planar, surface_tension, stream);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-// Plain C entry point, with the argument list of fsi_phase2_sweep.
-// is_double selects the instance; all pointers are device pointers except
-// offs, consts (VR_NCONST doubles), ratio (36 doubles) and cof_a (6 doubles),
-// which are host arrays.  pa and gc may be null without surface tension.
-// Returns cudaGetLastError() of the launch (0 = success), or -1 for
-// arguments the kernel does not take.
+static bool virial_args_ok(int n, int block, int n_off, int surface_tension,
+                           const void* pa, const void* gc) {
+  return block > 0 && block <= 1024 && n % block == 0 && n_off > 0 &&
+         n_off <= FSI_MAX_OFFS &&
+         !(surface_tension && (pa == nullptr || gc == nullptr));
+}
+
+// Plain C entry point of kernel 3, with the argument list of
+// fsi_phase2_sweep.  is_double selects the instance; all pointers are device
+// pointers except offs, consts (VR_NCONST doubles), ratio (36 doubles) and
+// cof_a (6 doubles), which are host arrays.  pa and gc may be null without
+// surface tension.  Returns cudaGetLastError() of the launch (0 = success),
+// or -1 for arguments the kernel does not take.
 extern "C" int fsi_virial_sweep(int is_double, const void* pos,
                                 const void* vel, const void* key,
                                 const void* prop, const void* pp,
@@ -301,20 +361,47 @@ extern "C" int fsi_virial_sweep(int is_double, const void* pos,
                                 const double* cof_a, int planar,
                                 int surface_tension, int uniform_ratio,
                                 int uniform_radii, void* stream) {
-  if (block <= 0 || block > 1024 || n % block != 0 || n_off <= 0 ||
-      n_off > FSI_MAX_OFFS)
-    return -1;
-  if (surface_tension && (pa == nullptr || gc == nullptr)) return -1;
+  if (!virial_args_ok(n, block, n_off, surface_tension, pa, gc)) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_double)
     return launch_virial<double>(pos, vel, key, prop, pp, pa, gc, invmu,
                                  win_start, win_len, out, n, block, n_off,
-                                 offs, consts, ratio, cof_a, planar,
-                                 surface_tension, uniform_ratio, uniform_radii,
-                                 s);
+                                 offs, nullptr, nullptr, nullptr, 0.0, consts,
+                                 ratio, cof_a, planar, surface_tension,
+                                 uniform_ratio, uniform_radii, s);
   return launch_virial<float>(pos, vel, key, prop, pp, pa, gc, invmu,
                               win_start, win_len, out, n, block, n_off, offs,
-                              consts, ratio, cof_a, planar, surface_tension,
+                              nullptr, nullptr, nullptr, 0.0, consts, ratio,
+                              cof_a, planar, surface_tension, uniform_ratio,
+                              uniform_radii, s);
+}
+
+// Plain C entry point of kernel 6 (row-major rule), with the argument list
+// of fsi_phase2_rows.
+extern "C" int fsi_virial_rows(int is_double, const void* pos, const void* vel,
+                               const void* prop, const void* pp,
+                               const void* pa, const void* gc, const void* mu,
+                               const void* win_start, const void* win_len,
+                               void* out, int n, int block, int n_off,
+                               const int* offs_yz, const double* geom,
+                               const int* ncell, const double* consts,
+                               const double* ratio, const double* cof_a,
+                               double support2, int planar,
+                               int surface_tension, int uniform_ratio,
+                               int uniform_radii, void* stream) {
+  if (!virial_args_ok(n, block, n_off, surface_tension, pa, gc)) return -1;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_double)
+    return launch_virial<double>(pos, vel, nullptr, prop, pp, pa, gc, mu,
+                                 win_start, win_len, out, n, block, n_off,
+                                 nullptr, offs_yz, geom, ncell, support2,
+                                 consts, ratio, cof_a, planar,
+                                 surface_tension, uniform_ratio,
+                                 uniform_radii, s);
+  return launch_virial<float>(pos, vel, nullptr, prop, pp, pa, gc, mu,
+                              win_start, win_len, out, n, block, n_off,
+                              nullptr, offs_yz, geom, ncell, support2, consts,
+                              ratio, cof_a, planar, surface_tension,
                               uniform_ratio, uniform_radii, s);
 }
 

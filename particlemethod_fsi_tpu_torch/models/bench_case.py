@@ -39,8 +39,10 @@ def bench_grid(n_side: int):
 
 
 def bench_config(**numerics_kw) -> CaseConfig:
-    """Physics tables of the bench scene; window-sweep backend, C8 margin
-    0.5 unless ``numerics_kw`` says otherwise."""
+    """Physics tables of the bench scene; the field-major window sweep
+    (``backend="pallas_t"``) with C8 margin 0.5 unless ``numerics_kw`` says
+    otherwise (``backend="pallas"`` selects the row-major sweep, which
+    rebuilds the frame every step)."""
     return CaseConfig(
         dt=1e-4, elastic_dt=1e-4,
         density=(1e3, 1e3, 1.1e3, 1e3, 1e3, 6e3),
@@ -58,6 +60,7 @@ def bench_config(**numerics_kw) -> CaseConfig:
 
 def build_case(n_side: int, device=None, **numerics_kw) -> Simulation:
     """The bench scene as a ready :class:`Simulation`.  ``device=None`` puts
-    it on the card (and raises without one); ``"cpu"`` selects the CPU."""
+    it on the card (and raises without one); ``"cpu"`` selects the CPU.
+    ``numerics_kw`` go to :class:`NumericsConfig`, ``backend`` among them."""
     return Simulation(bench_config(**numerics_kw), bench_grid(n_side),
                       device=device)

@@ -1,8 +1,9 @@
 """The cell-sorted particle frame.
 
 Counterpart of ``particlemethod_fsi_tpu/ops/packed_engine.py``.  Ported:
-:class:`SortedFrame`, :func:`_cell_key`, :func:`sort_frame` (the
-``with_cell_start=False`` form the window sweep uses) and :func:`unsort`.
+:class:`SortedFrame`, :func:`_cell_key` (with its :func:`cell_coords`),
+:func:`sort_frame` (the ``with_cell_start=False`` form the window sweeps
+use) and :func:`unsort`.
 The packed candidate engine itself (cell tables, ``phase1_fields``,
 ``phase2_forces``, ``packed_virial``) and ``pad_frame_planes`` are not ported
 yet.
@@ -28,15 +29,21 @@ class SortedFrame(NamedTuple):
     orig: torch.Tensor  # [N] int64 original slot index
 
 
-def _cell_key(pos: torch.Tensor, grid: CellGrid, valid: torch.Tensor):
-    """int32 cell id per particle (x fastest), ``num_cells`` where invalid.
-    The cell coordinate is a true divide by the cell width, clipped into the
-    grid, exactly as the JAX package computes it."""
+def cell_coords(pos: torch.Tensor, grid: CellGrid) -> torch.Tensor:
+    """``[N, 3]`` int32 cell coordinate per particle: a true divide by the
+    cell width, floored and clipped into the grid, exactly as the JAX
+    package computes it (the row-major sweeps' ring test uses the same
+    divide, so a particle on a cell boundary lands in one cell for both)."""
     dmin = torch.as_tensor(grid.domain_min, dtype=pos.dtype, device=pos.device)
     cw = torch.as_tensor(grid.cell_width, dtype=pos.dtype, device=pos.device)
     nc = torch.as_tensor(grid.cell_count, dtype=torch.int32, device=pos.device)
     ci = torch.floor((pos - dmin) / cw).to(torch.int32)
-    ci = torch.minimum(torch.clamp_min(ci, 0), nc - 1)
+    return torch.minimum(torch.clamp_min(ci, 0), nc - 1)
+
+
+def _cell_key(pos: torch.Tensor, grid: CellGrid, valid: torch.Tensor):
+    """int32 cell id per particle (x fastest), ``num_cells`` where invalid."""
+    ci = cell_coords(pos, grid)
     nx, ny, _ = grid.cell_count
     key = ci[:, 0] + nx * (ci[:, 1] + ny * ci[:, 2])
     return torch.where(valid, key, grid.num_cells)

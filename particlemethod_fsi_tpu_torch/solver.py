@@ -1,7 +1,10 @@
 """The simulation: setup, the time step, and the chunked run loop.
 
-Counterpart of ``particlemethod_fsi_tpu/solver.py``, for the window-sweep
-backend (``pallas_t`` there) on one device.  Ported: ``adjust_domain``,
+Counterpart of ``particlemethod_fsi_tpu/solver.py``, for the two window-sweep
+backends on one device: ``pallas_t`` (field-major kernels, ``ops/windows_t``;
+what ``auto`` selects) and ``pallas`` (row-major kernels, ``ops/windows``),
+which also takes every ``auto``/``pallas_t`` frame of 2^24 cells or more, as
+in the JAX package.  Ported: ``adjust_domain``,
 ``Simulation.__init__`` (without ghosts, 3-D plane padding and diagnostics),
 ``_is_planar``, ``_initial_structure_neighbors``, ``_force``,
 ``_margin_cached``, ``_init_cache``, ``_force_cached`` (without the ghost
@@ -11,14 +14,15 @@ branch without ghosts) and the module function ``load_case``.  Sequence of
 one step
 (matching src/main.cpp:592-663):
 
-  periodic wrap -> frame rebuild or reuse (C8 predicate) -> phase 1
-  (densities, divergence) + EOS -> phase 2 (pairwise forces) -> gravity ->
-  velocity kick (fluid + structure) -> fluid convection -> elastic substeps.
+  periodic wrap -> frame rebuild or reuse (C8 predicate; ``pallas_t``
+  only, the row-major backend rebuilds every step) -> phase 1 (densities,
+  divergence) + EOS -> phase 2 (pairwise forces) -> gravity -> velocity
+  kick (fluid + structure) -> fluid convection -> elastic substeps.
 
 Not ported yet, and raised for by name rather than run some other way:
 prescribed wall motion and ``Rolling``, the Turek inlet and the Bar initial
-velocity profile, periodic ghosts, 3-D plane padding, frames of 2^24 cells or
-more, and the ``pallas`` / ``packed`` / ``gather`` backends.
+velocity profile, periodic ghosts, 3-D plane padding, and the ``packed`` /
+``gather`` backends.
 
 PyTorch runs eagerly, so where the JAX package traces ``lax.cond`` and
 ``lax.scan`` this module has a Python ``if`` on one device scalar a step (a
@@ -140,10 +144,10 @@ class Simulation:
         self.spacing = float(grid.spacing)
         self.volume = grid.particle_volume(cfg.two_dimensional)
 
-        if cfg.numerics.backend not in ("auto", "pallas_t"):
+        if cfg.numerics.backend not in ("auto", "pallas_t", "pallas"):
             raise NotImplementedError(
-                f"backend {cfg.numerics.backend!r}: only the window sweep "
-                "('pallas_t', or 'auto') is ported; the row-major, packed "
+                f"backend {cfg.numerics.backend!r}: only the window sweeps "
+                "('pallas_t', 'pallas', or 'auto') are ported; the packed "
                 "and gather engines come with a later slice")
         if cfg.scene.rolling is not None:
             raise NotImplementedError(
@@ -233,10 +237,14 @@ class Simulation:
             raise NotImplementedError(
                 "3-D frames need plane padding, which is not ported yet "
                 "(3-D slice)")
-        if self._frame_grid.num_cells >= (1 << 24):
-            raise NotImplementedError(
-                "frames of 2^24 cells or more run on the row-major kernels "
-                "in the JAX package; those are not ported yet")
+        # 'auto' is the field-major sweep; a frame of 2^24 cells or more
+        # goes to the row-major one, exactly as in the JAX package (there
+        # the field-major kernels carry keys as float32 lanes)
+        self._backend = ("pallas_t" if cfg.numerics.backend == "auto"
+                         else cfg.numerics.backend)
+        if (self._backend == "pallas_t"
+                and self._frame_grid.num_cells >= (1 << 24)):
+            self._backend = "pallas"
 
         self._pcfg = make_window_config(cfg, self.kernels,
                                         planar=self._is_planar(grid))
@@ -352,14 +360,24 @@ class Simulation:
         return idx, mask
 
     # ------------------------------------------------------------------
+    @property
+    def _sweeps(self):
+        """(phase 1 + EOS, phase 2, virial) of the backend in use: the
+        row-major functions of ``ops/windows`` or the field-major ones of
+        ``ops/windows_t``; all take the same arguments."""
+        if self._backend == "pallas":
+            return pw.phase1_fields, pw.phase2_forces, pw.virial
+        return pwt.phase1_fields_t, pwt.phase2_forces_t, pwt.virial_t
+
     def _pair_forces(self, frame: pk.SortedFrame, windows):
         """Phase 1 + EOS, phase 2, gravity, and the return to slot order,
         for a frame that is already sorted."""
         fgrid = self._frame_grid
-        f1 = pwt.phase1_fields_t(frame, fgrid, self.kernels, self.tables,
-                                 cfg=self._pcfg, windows=windows)
+        phase1, phase2, _ = self._sweeps
+        f1 = phase1(frame, fgrid, self.kernels, self.tables, cfg=self._pcfg,
+                    windows=windows)
         self._mark("phase1")
-        force_s = pwt.phase2_forces_t(
+        force_s = phase2(
             frame, f1, fgrid, self.kernels, self.tables, volume=self.volume,
             two_dimensional=self.cfg.two_dimensional, cfg=self._pcfg,
             windows=windows)
@@ -376,7 +394,9 @@ class Simulation:
         return force
 
     def _force(self, pos, vel, prop):
-        """Total pairwise + body force with a fresh frame (no reuse)."""
+        """Total pairwise + body force with a fresh frame (no reuse).  One
+        window table serves both phases (the JAX row-major functions each
+        compute the same table again)."""
         frame = pk.sort_frame(pos, vel, prop, self._frame_grid)
         windows = pw.compute_windows(frame, self._frame_grid, self._pcfg)
         self._mark("frame")
@@ -384,8 +404,11 @@ class Simulation:
 
     @property
     def _margin_cached(self) -> bool:
-        """C8 skip active: a margin is configured."""
-        return self.cfg.numerics.rebuild_margin > 0.0
+        """C8 skip active: a margin is configured and the backend is the one
+        that carries a reusable frame and window tables (``pallas_t``; the
+        row-major ``pallas`` rebuilds every step, as in the JAX package)."""
+        return (self.cfg.numerics.rebuild_margin > 0.0
+                and self._backend == "pallas_t")
 
     def _init_cache(self, state: ParticleState) -> dict:
         """Empty frame cache whose infinite ``ref_pos`` forces a rebuild on
@@ -585,18 +608,19 @@ class Simulation:
         cfg = self.cfg
         prop, pos, vel = state.prop, state.pos, state.vel
         fgrid, pcfg = self._frame_grid, self._pcfg
+        phase1, phase2, virial = self._sweeps
         self._mark("begin")
         frame = pk.sort_frame(pos, vel, prop, fgrid)
         windows = pw.compute_windows(frame, fgrid, pcfg)
         self._mark("frame")
-        f1 = pwt.phase1_fields_t(frame, fgrid, self.kernels, self.tables,
-                                 cfg=pcfg, windows=windows, count=True)
+        f1 = phase1(frame, fgrid, self.kernels, self.tables, cfg=pcfg,
+                    windows=windows, count=True)
         self._mark("phase1")
-        force_s = pwt.phase2_forces_t(
+        force_s = phase2(
             frame, f1, fgrid, self.kernels, self.tables, volume=self.volume,
             two_dimensional=cfg.two_dimensional, cfg=pcfg, windows=windows)
         self._mark("phase2")
-        virial_s, vp_s = pwt.virial_t(
+        virial_s, vp_s = virial(
             frame, f1, fgrid, self.kernels, self.tables, volume=self.volume,
             two_dimensional=cfg.two_dimensional, cfg=pcfg, windows=windows)
         self._mark("virial")

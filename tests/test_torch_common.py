@@ -74,12 +74,13 @@ def jitter(grid, seed: int, *, pos_scale: float = 0.05, vel_scale: float = 0.05)
 WINDOW_KW = dict(backend="pallas_t", pallas_block=32, pallas_wmax=128)
 
 
-def bench_sims(n_side: int, **numerics_kw):
+def bench_sims(n_side: int, backend: str = "pallas_t", **numerics_kw):
     """(JAX Simulation, port Simulation) of the bench scene, float64, CPU."""
     import bench
     from particlemethod_fsi_tpu_torch.models import build_case
 
-    kw = dict(dtype="float64", pallas_block=32, pallas_wmax=128, **numerics_kw)
-    jsim = bench.build_case(n_side, backend="pallas_t", **kw)
+    kw = dict(dtype="float64", pallas_block=32, pallas_wmax=128,
+              backend=backend, **numerics_kw)
+    jsim = bench.build_case(n_side, **kw)
     psim = build_case(n_side, device="cpu", **kw)
     return jsim, psim

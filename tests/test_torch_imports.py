@@ -39,7 +39,8 @@ def test_port_runs_with_jax_unimportable():
         import torch
         import particlemethod_fsi_tpu_torch as port
         from particlemethod_fsi_tpu_torch.models import build_case
-        from particlemethod_fsi_tpu_torch.ops import windows_t, cuda_loader
+        from particlemethod_fsi_tpu_torch.ops import windows, windows_t, cuda_loader
+        from particlemethod_fsi_tpu_torch.tools import bf16_microbench
         for blocked in ("jax", "flax", "particlemethod_fsi_tpu"):
             try:
                 __import__(blocked)
@@ -51,8 +52,21 @@ def test_port_runs_with_jax_unimportable():
         out = sim.run_chunk(sim.state0, 2)
         assert bool(torch.isfinite(out.pos).all())
         assert sim.rebuilds >= 1
-        assert windows_t.launch_counts == {
-            "phase1_sweep": 0, "phase2_sweep": 0, "virial_sweep": 0}
+        # the row-major backend, and the probe's plain twin
+        rows = build_case(12, device="cpu", dtype="float64", pallas_block=32,
+                          backend="pallas")
+        out = rows.run_chunk(rows.state0, 2)
+        assert bool(torch.isfinite(out.pos).all()) and rows.rebuilds == 2
+        d = rows.diagnostics(out)
+        assert abs(d["virial_pressure"]).max() > 0
+        x, y = bf16_microbench.inputs(device="cpu")
+        acc = bf16_microbench.run(x[:4], y[:4], torch.bfloat16, 2)
+        assert acc.shape == (4, 1) and bool(torch.isfinite(acc).all())
+        assert windows_t.launch_counts is windows.launch_counts
+        assert windows.launch_counts == {
+            "phase1_sweep": 0, "phase2_sweep": 0, "virial_sweep": 0,
+            "phase1_rows": 0, "phase2_rows": 0, "virial_rows": 0}
+        assert bf16_microbench.launch_counts == {"bf16_microbench": 0}
         assert not [m for m in sys.modules
                     if m.split(".")[0] in ("jax", "flax", "triton")]
         print("PORT_OK", sim.n)
@@ -75,7 +89,8 @@ def test_command_line_runs_with_jax_unimportable(tmp_path):
             importlib.import_module(name)
         for want in ("cli", "io.data_file", "io.native", "io.vtk_writer",
                      "io.grid_file", "utils.logging", "utils.watchdog",
-                     "utils.checkpoint", "generator", "convert"):
+                     "utils.checkpoint", "generator", "convert",
+                     "ops.windows", "ops.windows_t", "tools.bf16_microbench"):
             assert port.__name__ + "." + want in names, want
         from particlemethod_fsi_tpu_torch import cli
         from particlemethod_fsi_tpu_torch.io import write_data_file, write_grid_file
@@ -182,7 +197,14 @@ def test_kernel_sources_and_loader_need_no_compiler_at_import():
     from particlemethod_fsi_tpu_torch.ops import cuda_loader
 
     cu = sorted(p.name for p in cuda_loader.CSRC_DIR.glob("*.cu"))
-    assert cu == ["phase1_sweep.cu", "phase2_sweep.cu", "virial_sweep.cu"]
+    assert cu == ["bf16_microbench.cu", "phase1_sweep.cu", "phase2_sweep.cu",
+                  "virial_sweep.cu"]
+    # every kernel's C entry point, kernels 1-7
+    text = " ".join(p.read_text() for p in cuda_loader.CSRC_DIR.glob("*.cu"))
+    for entry in ("fsi_phase1_sweep", "fsi_phase2_sweep", "fsi_virial_sweep",
+                  "fsi_phase1_rows", "fsi_phase2_rows", "fsi_virial_rows",
+                  "fsi_bf16_microbench"):
+        assert f'extern "C" int {entry}(' in text, entry
     for p in cuda_loader.CSRC_DIR.glob("*.cu"):
         text = p.read_text()
         assert 'extern "C"' in text and "torch/" not in text

@@ -225,8 +225,9 @@ def test_plain_versions_do_not_depend_on_the_slab_size(monkeypatch):
             two_dimensional=True, cfg=cfg, windows=win)
 
     f1_a, force_a = both()
-    monkeypatch.setattr(pwt, "_PLAIN_PAIR_BUDGET", 1)
-    slabs = list(pwt._window_slabs(frame, win[0], win[1], (0,), cfg.block))
+    # the slab walk is shared by both sweep families and lives in windows.py
+    monkeypatch.setattr(pw, "_PLAIN_PAIR_BUDGET", 1)
+    slabs = list(pw._window_slabs(frame, win[0], win[1], 1, cfg.block))
     # one block a slab; blocks whose window is empty (pad rows) yield nothing
     assert all(nb == 1 for _, _, nb, *_ in slabs)
     assert len(slabs) == int((win[1][:, 0] > 0).sum()) > 1
