@@ -15,7 +15,9 @@ fault:
 
 1. the card: name and power limit as ``nvidia-smi`` gives them;
 2. build: the CUDA kernels under ``particlemethod_fsi_tpu_torch/csrc/`` are
-   compiled from source (seconds printed as set-up);
+   compiled from source (seconds printed as set-up), and beside them a
+   checking build with ``-DFSI_PHASE2_COUNT``, whose phase-2 kernels count
+   what they walk;
 3. kernels: each hand-written kernel against its plain PyTorch version on
    the card -- (a) the ``double`` instances of kernels 1-6 on small seeded
    frames for every specialization branch, 2-D and 3-D, rtol 1e-12, and the
@@ -25,7 +27,11 @@ fault:
    path, where
    the kernel must lie as close to a float64 evaluation as the plain
    float32 version does; timed with inputs warm in L2 (back-to-back
-   launches) and cold (L2 flushed before every launch);
+   launches) and cold (L2 flushed before every launch); the phase-2
+   kernels (2 and 5) also launched twice and held bit-equal, and once
+   through the checking build, bit-equal again, whose count of the senders
+   each receiver pre-tests must equal the plain ring runs' total; printed
+   beside the window senders;
 4. a small coupled scene in float64 on both backends, card (kernels)
    against CPU (plain versions), ten steps; and the gate case (6,724
    particles, float64, 100 steps through ``load_case``) on both backends
@@ -56,6 +62,7 @@ the last line ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import concurrent.futures
 import gzip
 import io
 import json
@@ -345,11 +352,14 @@ def check_small_cases(device) -> dict:
 
 
 def check_pads_in_windows(device) -> float:
-    """Kernels 4-6 (double) where only their validity test keeps pad rows
-    out: every pad moved next to a fluid particle and every window run on
-    to the frame's end, so that each pad is a candidate of every receiver;
-    against the plain versions (rtol 1e-12 of the row scale), and the real
-    rows against the same kernels on the exact windows."""
+    """Kernels 4-6 (double) with pad rows inside the fluid: every pad moved
+    next to a fluid particle and every window run on to the frame's end, so
+    that each pad lies in every receiver's window and in some receivers'
+    position rings.  Kernels 4 and 6 keep it out by their validity test
+    alone; kernel 5 by its ring runs, taken from the key (a pad's key
+    ``num_cells`` lies in no ring), before that test.  Against the plain
+    versions (rtol 1e-12 of the row scale), and the real rows against the
+    same kernels on the exact windows."""
     import torch
     from particlemethod_fsi_tpu_torch.ops import windows as pw
 
@@ -476,9 +486,10 @@ def main_frame(sim, state):
     return frame, frame64, win, tables64, true_pairs, table_bytes
 
 
-def check_and_time_main_frame(sim, state) -> list:
+def check_and_time_main_frame(sim, state, counting) -> list:
     """Kernels 1-3 in float32 on the field-major main path's own frame,
-    against their plain versions, with times and the roofline bound."""
+    against their plain versions, with times and the roofline bound; what
+    kernel 2 walks, counted by the checking build ``counting``."""
     from particlemethod_fsi_tpu_torch.ops import windows as pw
     from particlemethod_fsi_tpu_torch.ops import windows_t as pwt
 
@@ -489,6 +500,7 @@ def check_and_time_main_frame(sim, state) -> list:
     offs, _ = pw.row_offsets(grid)
     n = frame.pos.shape[0]
     tested_pairs = float(win[1].double().sum()) * wcfg.block
+    runs = pwt.ring_runs(frame, *win, offs, wcfg.block)
     src = "particlemethod_fsi_tpu/ops/pallas_windows_t.py"
     rows = []
 
@@ -522,17 +534,20 @@ def check_and_time_main_frame(sim, state) -> list:
             lambda k=kernel: k(*a32, **kw), lambda p=plain: p(*a32, **kw),
             lambda p=plain: p(*a64, **kw),
             n * per_particle + table_bytes, true_pairs * per_pair))
+    walk = ring_walk("phase2_sweep", lambda: pwt.phase2_sweep(*a32, **kw),
+                     runs, rows[1], counting)
     print(f"kernels at 1M (pallas_t frame): frame rows {n}, window senders "
-          f"tested per receiver {tested_pairs / n:.1f}, pairs inside the "
-          f"kernel radius per receiver {true_pairs / n:.2f}, longest window "
-          f"{int(win[1].max())}")
+          f"tested per receiver {tested_pairs / n:.1f} (kernels 1 and 3), "
+          f"{walk}, pairs inside the kernel radius per receiver "
+          f"{true_pairs / n:.2f}, longest window {int(win[1].max())}")
     return rows
 
 
-def check_and_time_rows_frame(sim, state) -> list:
+def check_and_time_rows_frame(sim, state, counting) -> list:
     """Kernels 4-6 in float32 on the row-major main path's own frame,
-    against their plain versions, with times and the roofline bound; and
-    kernel 4's fields against kernel 1's on the same frame."""
+    against their plain versions, with times and the roofline bound;
+    kernel 4's fields against kernel 1's on the same frame; and what kernel
+    5 walks, counted by the checking build ``counting``."""
     import torch
     from particlemethod_fsi_tpu_torch.ops import windows as pw
     from particlemethod_fsi_tpu_torch.ops import windows_t as pwt
@@ -591,11 +606,69 @@ def check_and_time_rows_frame(sim, state) -> list:
             lambda k=kernel: k(*a32, **kw), lambda p=plain: p(*a32, **kw),
             lambda p=plain: p(*a64, **kw), n * per_particle + table_bytes,
             true_pairs * per_pair + n * ROWS_FLOP_PER_PARTICLE))
+    walk = ring_walk("phase2_rows", lambda: pw.phase2_rows_sweep(*a32, **kw),
+                     pw.ring_runs_rows(frame, *win, grid, wcfg.block), rows[1],
+                     counting)
     print(f"kernels at 1M (pallas frame): kernel 4's fields against kernel "
           f"1's on the same frame: largest difference {diff4:.3e}, neighbour "
-          f"counts equal; pairs inside the kernel radius per receiver "
+          f"counts equal; window senders tested per receiver "
+          f"{float(win[1].double().sum()) * wcfg.block / n:.1f} (kernels 4 "
+          f"and 6), {walk}; pairs inside the kernel radius per receiver "
           f"{true_pairs / n:.2f}")
     return rows
+
+
+def ring_walk(name, run, runs, row, counting) -> str:
+    """Two launches of a phase-2 kernel must be bit-equal (each receiver
+    sums its senders in a fixed order, no atomics), and a third through the
+    checking build ``counting`` (``-DFSI_PHASE2_COUNT``) bit-equal to them.
+    That launch counts in the kernel what it walked: the senders its
+    receivers pre-tested, which must be exactly the senders of the ring
+    runs that ``runs`` (the plain ``ring_runs``) gives, the warps' pre-test
+    steps, and the senders that passed the pre-test.  Returns the text of
+    those counts at 1M, which also go into the kernel's row of the
+    ``kernels`` line."""
+    import ctypes
+    import torch
+    from particlemethod_fsi_tpu_torch.ops import cuda_loader
+
+    counts = (ctypes.c_ulonglong * 3)()
+    read = counting.fsi_phase2_counts
+    read.restype, read.argtypes = ctypes.c_int, [ctypes.c_void_p]
+    a, b = run(), run()
+    torch.cuda.synchronize()
+    if not torch.equal(a, b):
+        fail(f"{name} at 1M: two launches differ by "
+             f"{float((a - b).abs().max()):.3e}")
+    if read(ctypes.addressof(counts)) != 0:  # clears them
+        fail(f"{name}: fsi_phase2_counts failed")
+    with cuda_loader.using(counting):
+        c = run()
+    torch.cuda.synchronize()
+    if read(ctypes.addressof(counts)) != 0:
+        fail(f"{name}: fsi_phase2_counts failed")
+    if not torch.equal(a, c):
+        fail(f"{name} at 1M: the counting build differs by "
+             f"{float((a - c).abs().max()):.3e}")
+    lo, hi = runs
+    length = hi - lo
+    n = length.shape[0]
+    if counts[0] != int(length.sum()):
+        fail(f"{name} at 1M: the kernel pre-tested {counts[0]} senders, the "
+             f"receivers' ring runs hold {int(length.sum())}")
+    warps = n // 32
+    tested, steps, passed = counts[0] / n, counts[1] / warps, counts[2] / n
+    plain_steps = float(
+        length.double().view(warps, 32, -1).max(dim=1).values.sum()) / warps
+    row.update(ring_senders_tested_per_receiver=tested,
+               pretest_steps_per_warp=steps,
+               senders_passed_per_receiver=passed)
+    return (f"counted in kernel {name}'s checking build (bit-equal): ring "
+            f"senders pre-tested per receiver {tested:.2f} (the plain ring "
+            f"runs' total, exactly), pre-test steps per warp {steps:.2f} "
+            f"(the longest run of 32 lanes, from the plain runs "
+            f"{plain_steps:.2f}), senders passing the pre-test per receiver "
+            f"{passed:.2f}; two launches bit-equal")
 
 
 def _row(name, source, replaces, err, ms, cold_ms, plain_ms, nbytes, flops):
@@ -1171,17 +1244,35 @@ def main() -> int:
     from particlemethod_fsi_tpu_torch.ops import cuda_loader
 
     t0 = time.time()
-    cuda_loader.load()
-    print(f"build: kernels compiled from csrc/ in {time.time() - t0:.1f} s "
-          f"(set-up)")
+    # the library the solver loads and, beside it, the checking build that
+    # counts what the phase-2 kernels walk: all nvcc processes at once
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        checking = pool.submit(cuda_loader.build, cuda_loader.CSRC_DIR,
+                               ("FSI_PHASE2_COUNT",))
+        cuda_loader.load()
+        counting = checking.result()
+    print(f"build: kernels compiled from csrc/ in {time.time() - t0:.1f} s, "
+          f"with the phase-2 checking build (set-up)")
     entry = ""
     for line in cuda_loader.build_log().splitlines():
         if "Compiling entry function" in line:
             entry = line.split("'")[1]
         elif "Used" in line and "registers" in line:
             print(f"  ptxas: {entry}: {line.split(':', 1)[1].strip()}")
-        elif "bytes spill" in line and "0 bytes spill stores, 0 bytes spill loads" not in line:
+        elif "bytes spill" in line and (
+                "phase2" in entry
+                or "0 bytes spill stores, 0 bytes spill loads" not in line):
             print(f"  ptxas: {entry}: {line.strip()}")
+    lib = cuda_loader.load()
+    occupancy = {
+        f"{'double' if dbl else 'float'},{'rows' if rule else 'key'},"
+        f"{'planar' if planar else '3d'}{',st' if st else ''}":
+            lib.fsi_phase2_occupancy(dbl, rule, planar, st, 64)
+        for dbl in (0, 1) for rule in (0, 1) for planar in (1, 0)
+        for st in (0, 1)}
+    print("phase 2 (kernels 2 and 5), resident blocks of 64 threads per SM "
+          "(cudaOccupancyMaxActiveBlocksPerMultiprocessor): "
+          + json.dumps(occupancy))
 
     device = torch.device("cuda", 0)
     worst = check_small_cases(device)
@@ -1215,7 +1306,7 @@ def main() -> int:
 
         # the field-major backend: kernels 1-3
         sim, state, counts = run_main_path("pallas_t")
-        rows = check_and_time_main_frame(sim, state)
+        rows = check_and_time_main_frame(sim, state, counting)
         state = time_guarded(sim, state)
         diag_counts = time_diagnostics(sim, state, "pallas_t")
         del sim, state
@@ -1223,7 +1314,7 @@ def main() -> int:
 
         # the row-major backend: kernels 4-6
         sim, state, rows_counts = run_main_path("pallas")
-        rows += check_and_time_rows_frame(sim, state)
+        rows += check_and_time_rows_frame(sim, state, counting)
         rows_diag_counts = time_diagnostics(sim, state, "pallas")
         del sim, state
         torch.cuda.empty_cache()

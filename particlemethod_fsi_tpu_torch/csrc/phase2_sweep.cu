@@ -23,15 +23,38 @@
 // P, 1/mu, key and type read once, fx and fy written), some ten microseconds
 // at 1M particles; the pair math of the true neighbour pairs needs less time
 // than that at the float32 rate, so by the roofline the kernel is bound by
-// bytes.  As written it moves 52: pos and vel are staged as [N,3] rows and
-// the zero fz row is written.  This simple design is far from that bound: a
-// receiver tests every sender of its block's windows, an order of magnitude
-// more candidates than neighbours, and that candidate loop is where the time
-// goes.  What the design does about it: sender tiles staged once per block
-// in shared memory and read as broadcasts, ring and squared-radius pre-tests
-// before the rsqrt, constants folded on the host.  Cutting the candidates
-// per receiver is left to later work.  The row-major rule stages a linear
-// cell index a sender where the key rule stages the key.
+// bytes (kernel 5, whose ring costs two cell coordinates a particle, just
+// by operations).  As written it moves 52: pos and vel are [N,3] rows and
+// the zero fz row is written.
+//
+// What held the first design back: every receiver of a 64-row block tested
+// every sender of the block's windows (275 at the 1M bench scene) against
+// its ring, one sender a step for the whole block, and the warp ran the
+// force body in almost every step because some lane passed: the candidate
+// loop, not memory, set the time (flushing L2 cost 4-9 %).
+//
+// This design: the frame is sorted by key, so the senders in a receiver's
+// ring for one offset are one run of rows -- key rule, the keys
+// key_i + off - 1 .. key_i + off + 1; row rule, the linear cells of fsi_ring,
+// which on a frame sorted from these positions are the valid senders' keys
+// (a pad's key, num_cells, lies in no ring).  A block stages the windows of
+// all its offsets together, in chunks of P2Chunk senders, by cp.async, one
+// array a field, the key included; each receiver then finds its run within
+// each window's part of the chunk by two binary searches on the staged keys
+// and walks only that run (a third of the window at the bench scene; the
+// checking build below counts it, PERF.md), in batches of 32: a
+// branch-free pre-test (the whole-window walk's exact mask: ring, rij2 > 0,
+// the radius, and for the row rule j != i and the support) sets one bit a
+// sender, and the force body runs over the set bits in ascending order.  A
+// warp's pre-test steps are the longest run of its lanes and its body steps
+// the largest count of set bits, not the window.  Each receiver still sums
+// its own senders offset by offset in ascending row order with no atomics:
+// the same terms as the whole-window walk in the same order.  Windows of
+// any length give the masked walk's result exactly (a run is the ring
+// within the window, and a run that two chunks split is found in each).
+// One block a receiver block of 64: measured on the card,
+// more receiver blocks a CUDA block, smaller chunks for more resident
+// blocks, and searching the key in device memory were each slower (PERF.md).
 #include "window_sweep.cuh"
 
 enum {
@@ -45,7 +68,8 @@ template <typename T>
 struct Phase2Params {
   const T* pos;         // [N,3]
   const T* vel;         // [N,3]
-  const int* key;       // [N] (field-major rule only)
+  const int* key;       // [N] sorted: the ring runs (both rules) and the
+                        // field-major rule's ring test
   const int* prop;      // [N]
   const T* pp;          // [N] pressure P
   const T* pa;          // [N] pressure A (read with surface tension only)
@@ -67,30 +91,66 @@ struct Phase2Params {
   FsiRows<T> g;         // row-major rule only
 };
 
+// Senders one chunk stages in shared memory: a block's windows of all
+// offsets together (about 275 rows in 2-D at the bench scene's density) fit
+// in one float chunk; the double instances serve the checks and use smaller
+// chunks, which also exercises the chunking.
+template <typename T> struct P2Chunk;
+template <> struct P2Chunk<float> { static constexpr int value = 384; };
+template <> struct P2Chunk<double> { static constexpr int value = 128; };
+
+// Senders a receiver pre-tests before it runs the force body over the ones
+// that passed, in ascending order: one bit each of a 32-bit mask.
+#define P2_BATCH 32
+
+// A checking build (-DFSI_PHASE2_COUNT; chip_smoke.py makes one beside the
+// library the solver loads) counts what the kernel walks, summed over its
+// launches: [0] the senders the receivers pre-test, [1] the pre-test steps
+// of the warps (for each run, the longest of the 32 lanes'), [2] the
+// senders that pass the pre-test.  fsi_phase2_counts reads and clears them.
+// The forces are the same as without the counts.
+#ifdef FSI_PHASE2_COUNT
+__device__ unsigned long long fsi_p2_counts[3];
+#endif
+
 template <typename T, bool PLANAR, bool ST, bool ROWS>
 __global__ void phase2_sweep_kernel(const Phase2Params<T> p) {
-  __shared__ T s_pos[FSI_TILE * 3];
-  __shared__ T s_vel[FSI_TILE * 3];
-  __shared__ T s_gc[ST ? FSI_TILE * 3 : 1];
-  __shared__ T s_pp[FSI_TILE];
-  __shared__ T s_pa[ST ? FSI_TILE : 1];
-  __shared__ T s_visc[FSI_TILE];
-  __shared__ int s_key[ROWS ? 1 : FSI_TILE];
-  __shared__ int s_prop[FSI_TILE];
-  __shared__ int s_lin[ROWS ? FSI_TILE : 1];
+  constexpr int CAP = P2Chunk<T>::value;
+  constexpr int CAP_Z = PLANAR ? 1 : CAP;
+  constexpr int CAP_ST = ST ? CAP : 1;
+  constexpr int CAP_ST_Z = (ST && !PLANAR) ? CAP : 1;
+  // the chunk, one array a field (lanes read different senders)
+  __shared__ T s_x[CAP], s_y[CAP], s_z[CAP_Z];
+  __shared__ T s_vx[CAP], s_vy[CAP], s_vz[CAP_Z];
+  __shared__ T s_pp[CAP], s_visc[CAP];
+  __shared__ T s_pa[CAP_ST], s_gx[CAP_ST], s_gy[CAP_ST], s_gz[CAP_ST_Z];
+  __shared__ int s_prop[CAP];
+  __shared__ int s_key[CAP];  // sorted within each window: the run searches
+  __shared__ int s_lin[ROWS ? CAP : 1];  // row rule: the linear cell
   __shared__ T s_ratio[FSI_TYPE_COUNT * FSI_TYPE_COUNT];
+  // where each offset's window starts in the concatenation of all windows
+  __shared__ int s_cum[FSI_MAX_OFFS + 1];
 
   const int b = blockIdx.x;
-  const int i = b * blockDim.x + threadIdx.x;  // n is a multiple of blockDim.x
+  const int tid = threadIdx.x;
+  const int i = b * blockDim.x + tid;  // n is a multiple of blockDim.x
   const bool with_ratio = ST && !p.uniform_ratio;
   if (with_ratio) {
-    for (int t = threadIdx.x; t < FSI_TYPE_COUNT * FSI_TYPE_COUNT; t += blockDim.x)
+    for (int t = tid; t < FSI_TYPE_COUNT * FSI_TYPE_COUNT; t += blockDim.x)
       s_ratio[t] = p.ratio[t];
+  }
+  if (tid == 0) {
+    int acc = 0;
+    for (int o = 0; o < p.n_off; ++o) {
+      s_cum[o] = acc;
+      acc += p.win_len[b * p.n_off + o];
+    }
+    s_cum[p.n_off] = acc;
   }
 
   const T xi = p.pos[3 * i], yi = p.pos[3 * i + 1], zi = p.pos[3 * i + 2];
   const T vxi = p.vel[3 * i], vyi = p.vel[3 * i + 1], vzi = p.vel[3 * i + 2];
-  const int key_i = ROWS ? 0 : p.key[i];
+  const int key_i = p.key[i];
   const int prop_i = p.prop[i];
   const int type_i = fsi_clip_type(prop_i);
   const bool rs = fsi_is_structure(prop_i);
@@ -119,156 +179,249 @@ __global__ void phase2_sweep_kernel(const Phase2Params<T> p) {
   const T volume = p.c[P2_VOLUME];
   const T scale_di = p.c[P2_SCALE_DI];
 
+  __syncthreads();  // s_cum, s_ratio
+  const int total = s_cum[p.n_off];
+
   T fx = 0, fy = 0, fz = 0;
+#ifdef FSI_PHASE2_COUNT
+  unsigned n_tested = 0, n_steps = 0, n_passed = 0;
+#endif
 
-  for (int o = 0; o < p.n_off; ++o) {
-    const int start = p.win_start[b * p.n_off + o];
-    const int len = p.win_len[b * p.n_off + o];
-    const int ring_centre = key_i + p.offs[o];
-    const FsiRing ring = ROWS ? fsi_ring(cxi, cyi, czi, o, p.g) : FsiRing{};
-    for (int t0 = 0; t0 < len; t0 += FSI_TILE) {
-      const int cnt = min(FSI_TILE, len - t0);
-      const int row0 = start + t0;
-      __syncthreads();  // the previous tile is consumed
-      fsi_stage(s_pos, p.pos + 3 * (size_t)row0, 3 * cnt);
-      fsi_stage(s_vel, p.vel + 3 * (size_t)row0, 3 * cnt);
-      fsi_stage(s_pp, p.pp + row0, cnt);
-      fsi_stage(s_visc, p.visc + row0, cnt);
-      if (ROWS) {
-        fsi_stage_lin(s_lin, p.pos, p.prop, row0, cnt, p.g);
-      } else {
-        fsi_stage(s_key, p.key + row0, cnt);
-      }
-      fsi_stage(s_prop, p.prop + row0, cnt);
-      if (ST) {
-        fsi_stage(s_pa, p.pa + row0, cnt);
-        fsi_stage(s_gc, p.gc + 3 * (size_t)row0, 3 * cnt);
-      }
-      __syncthreads();
-
-      for (int j = 0; j < cnt; ++j) {
-        if (ROWS) {
-          if (!fsi_in_ring(s_lin[j], ring) || row0 + j == i) continue;
-        } else {
-          const int dk = s_key[j] - ring_centre;
-          if (dk < -1 || dk > 1) continue;
-        }
-        const T dx = s_pos[3 * j] - xi;
-        const T dy = s_pos[3 * j + 1] - yi;
-        T rij2 = dx * dx + dy * dy;
-        T dz = 0;
+  // The windows of all offsets, concatenated in offset order, in chunks of
+  // CAP senders: a chunk is staged with cp.async, then each receiver finds
+  // and walks its own ring run within it.
+  for (int v0 = 0; v0 < total; v0 += CAP) {
+    const int v1 = min(total, v0 + CAP);
+    __syncthreads();  // the previous chunk is consumed
+    for (int o = 0; o < p.n_off; ++o) {
+      const int a = max(s_cum[o], v0), e = min(s_cum[o + 1], v1);
+      // frame row = concatenation index + shift
+      const int shift = p.win_start[b * p.n_off + o] - s_cum[o];
+      for (int v = a + tid; v < e; v += blockDim.x) {
+        const int s = v - v0;
+        const size_t r = static_cast<size_t>(v + shift);
+        fsi_async_copy(s_x + s, p.pos + 3 * r);
+        fsi_async_copy(s_y + s, p.pos + 3 * r + 1);
+        fsi_async_copy(s_vx + s, p.vel + 3 * r);
+        fsi_async_copy(s_vy + s, p.vel + 3 * r + 1);
         if (!PLANAR) {
-          dz = s_pos[3 * j + 2] - zi;
-          rij2 += dz * dz;
+          fsi_async_copy(s_z + s, p.pos + 3 * r + 2);
+          fsi_async_copy(s_vz + s, p.vel + 3 * r + 2);
         }
-        // every family mask is the strict radius^2 - rij2 > 0
-        if (!(rij2 > T(0)) || !(rij2 < reach2)) continue;
-        if (ROWS && rij2 > p.support2) continue;
-        const T inv_r = fsi_rsqrt(rij2);
-        const T rij = rij2 * inv_r;
-        const T ex = dx * inv_r, ey = dy * inv_r;
-        const T ez = PLANAR ? T(0) : dz * inv_r;
-
-        const int prop_j = s_prop[j];
-        const bool ss = fsi_is_structure(prop_j);
-        T ratio_ij = 1, ratio_ji = 1;
-        if (with_ratio) {
-          ratio_ij = fsi_ratio(s_ratio, type_i, prop_j);
-          ratio_ji = (prop_j >= 0 && prop_j < FSI_TYPE_COUNT)
-                         ? s_ratio[prop_j * FSI_TYPE_COUNT + type_i]
-                         : T(0);
-        }
-
-        // pressureP + FSI interface load: fluid/wall receivers take all
-        // senders, structure receivers only non-structure senders
-        const bool m_p = p.c[P2_RADIUS_P2] - rij2 > T(0);
-        const T q_p = rij * p.c[P2_INV_RADIUS_P];
-        const T omq_p = T(1) - q_p;
-        T radial = 0;
-        if (m_p && !(rs && ss)) {
-          const T dwp = p.c[P2_DWP_COEF] * omq_p;
-          radial = (pp_i + s_pp[j]) * dwp * volume;
-        }
-
-        // pressureA; exactly zero without surface tension
+        fsi_async_copy(s_pp + s, p.pp + r);
+        fsi_async_copy(s_visc + s, p.visc + r);
+        fsi_async_copy(s_prop + s, p.prop + r);
+        fsi_async_copy(s_key + s, p.key + r);
         if (ST) {
-          bool m_a = m_p;
-          T q_a = q_p, omq_a = omq_p;
-          if (!p.uniform_radii) {
-            m_a = p.c[P2_RADIUS_A2] - rij2 > T(0);
-            q_a = rij * p.c[P2_INV_RADIUS_A];
-            omq_a = T(1) - q_a;
-          }
-          if (m_a && !rs) {
-            const T dwa = p.c[P2_NORM_A] * omq_a * (T(1) - T(3) * q_a) /
-                          p.c[P2_RADIUS_A];
-            radial += (pa_i * ratio_ij + s_pa[j] * ratio_ji) * dwa * volume;
-          }
+          fsi_async_copy(s_pa + s, p.pa + r);
+          fsi_async_copy(s_gx + s, p.gc + 3 * r);
+          fsi_async_copy(s_gy + s, p.gc + 3 * r + 1);
+          if (!PLANAR) fsi_async_copy(s_gz + s, p.gc + 3 * r + 2);
         }
-
-        // viscosity: field-major, a zero viscosity makes its inverse
-        // infinite and mu_h exactly 0; row-major, mu_h is 0 unless
-        // mu_i + mu_j > 0
-        {
-          bool m_v = m_p;
-          T omq_v = omq_p;
-          if (!p.uniform_radii) {
-            m_v = p.c[P2_RADIUS_V2] - rij2 > T(0);
-            omq_v = T(1) - rij * p.c[P2_INV_RADIUS_V];
+      }
+    }
+    fsi_async_wait();
+    if (ROWS) {
+      // the linear cell of each sender this thread staged, from its own
+      // copies (the sort key's true divide; INT_MIN for a pad, in no ring)
+      for (int o = 0; o < p.n_off; ++o) {
+        const int a = max(s_cum[o], v0), e = min(s_cum[o + 1], v1);
+        const int shift = p.win_start[b * p.n_off + o] - s_cum[o];
+        for (int v = a + tid; v < e; v += blockDim.x) {
+          const int s = v - v0;
+          const int cx = fsi_cell(s_x[s], p.g.dmin[0], p.g.cw[0], p.g.ncell[0]);
+          const int cy = fsi_cell(s_y[s], p.g.dmin[1], p.g.cw[1], p.g.ncell[1]);
+          int cz = 0;
+          if (p.g.three_d) {
+            const T z = PLANAR ? p.pos[3 * static_cast<size_t>(v + shift) + 2]
+                               : s_z[s];
+            cz = fsi_cell(z, p.g.dmin[2], p.g.cw[2], p.g.ncell[2]);
           }
-          if (m_v && !rs) {
-            T udote = (s_vel[3 * j] - vxi) * ex + (s_vel[3 * j + 1] - vyi) * ey;
-            if (!PLANAR) udote += (s_vel[3 * j + 2] - vzi) * ez;
-            T mu_h;
-            if (ROWS) {
-              const T den = visc_i + s_visc[j];
-              mu_h = den > T(0) ? T(2) * visc_i * s_visc[j] / den : T(0);
-            } else {
-              mu_h = T(2) / (visc_i + s_visc[j]);
-            }
-            const T dwv = p.c[P2_DWV_COEF] * omq_v;
-            radial += p.c[P2_C_V] * mu_h * udote * (-dwv) * inv_r * volume;
-          }
+          s_lin[s] = s_prop[s] >= 0
+                          ? cx + p.g.ncell[0] * (cy + p.g.ncell[1] * cz)
+                          : INT_MIN;
         }
+      }
+    }
+    __syncthreads();
 
-        fx += radial * ex;
-        fy += radial * ey;
-        if (!PLANAR) fz += radial * ez;
-
-        // diffuse interface; zero without surface tension
-        if (ST) {
-          bool m_g = m_p;
-          T omq_g = omq_p;
-          if (!p.uniform_radii) {
-            m_g = p.c[P2_RADIUS_G2] - rij2 > T(0);
-            omq_g = T(1) - rij * p.c[P2_INV_RADIUS_G];
+    for (int o = 0; o < p.n_off; ++o) {
+      const int a = max(s_cum[o], v0), e = min(s_cum[o + 1], v1);
+      if (a >= e) continue;
+      // frame row of chunk index 0
+      const int row0 = v0 + p.win_start[b * p.n_off + o] - s_cum[o];
+      // This receiver's ring run within the chunk's part of the window,
+      // [j0, j1): the keys of its ring are one interval [vlo, vhi] (key
+      // rule: key_i + off +- 1; row rule: the linear cells of fsi_ring,
+      // which on a frame sorted from these positions are the valid
+      // senders' keys; a pad's key, num_cells, lies in no ring), and the
+      // window is sorted by key, so two lower bounds find it.
+      const int ring_centre = key_i + p.offs[o];
+      const FsiRing ring = ROWS ? fsi_ring(cxi, cyi, czi, o, p.g) : FsiRing{};
+      const int vlo = ROWS ? ring.lo : ring_centre - 1;
+      const int vhi = ROWS ? ring.lo + static_cast<int>(ring.span)
+                           : ring_centre + 1;
+      const int j0 = fsi_lower_bound(s_key, a - v0, e - v0, vlo);
+      const int j1 = fsi_lower_bound(s_key, j0, e - v0, vhi + 1);
+#ifdef FSI_PHASE2_COUNT
+      n_tested += j1 - j0;
+      n_steps += __reduce_max_sync(0xffffffffu, static_cast<unsigned>(j1 - j0));
+#endif
+      for (int base = j0; base < j1; base += P2_BATCH) {
+        // pre-test, branch-free: the exact mask of a walk of the whole
+        // window (the run only leaves out senders it rejects); every family
+        // mask is the strict radius^2 - rij2 > 0
+        const int cnt = min(P2_BATCH, j1 - base);
+        unsigned live = 0u;
+#pragma unroll
+        for (int t = 0; t < P2_BATCH; ++t) {
+          if (t >= cnt) break;
+          const int j = base + t;
+          const T dx = s_x[j] - xi;
+          const T dy = s_y[j] - yi;
+          T rij2 = dx * dx + dy * dy;
+          if (!PLANAR) {
+            const T dz = s_z[j] - zi;
+            rij2 += dz * dz;
           }
-          if (m_g && !rs) {
-            const T wgv = p.c[P2_NORM_G] * (omq_g * omq_g);
-            const T dwg = p.c[P2_DWG_COEF] * omq_g;
-            const T wij = ratio_ij * wgv, wji = ratio_ji * wgv;
-            const T dwij = ratio_ij * dwg, dwji = ratio_ji * dwg;
-            const T gcx_j = s_gc[3 * j], gcy_j = s_gc[3 * j + 1];
-            const T t1x = a_i * (gcx_j * wji - gcx_i * wij) * scale_di;
-            const T t1y = a_i * (gcy_j * wji - gcy_i * wij) * scale_di;
-            T gr_sum = (gcx_j * dwji - gcx_i * dwij) * dx +
-                       (gcy_j * dwji - gcy_i * dwij) * dy;
-            T t1z = 0;
-            if (!PLANAR) {
-              const T gcz_j = s_gc[3 * j + 2];
-              t1z = a_i * (gcz_j * wji - gcz_i * wij) * scale_di;
-              gr_sum += (gcz_j * dwji - gcz_i * dwij) * dz;
+          bool ok = (rij2 > T(0)) & (rij2 < reach2);
+          if (ROWS)
+            ok = ok & fsi_in_ring(s_lin[j], ring) & (row0 + j != i) &
+                 !(rij2 > p.support2);
+          else  // the key within one of the ring's centre
+            ok = ok & (static_cast<unsigned>(s_key[j] - ring_centre + 1) <= 2u);
+          live |= static_cast<unsigned>(ok) << t;
+        }
+#ifdef FSI_PHASE2_COUNT
+        n_passed += __popc(live);
+#endif
+        // the force body over the senders that passed, in ascending order
+        while (live) {
+          const int j = base + __ffs(live) - 1;
+          live &= live - 1u;
+          const T dx = s_x[j] - xi;
+          const T dy = s_y[j] - yi;
+          T rij2 = dx * dx + dy * dy;
+          T dz = 0;
+          if (!PLANAR) {
+            dz = s_z[j] - zi;
+            rij2 += dz * dz;
+          }
+          const T inv_r = fsi_rsqrt(rij2);
+          const T rij = rij2 * inv_r;
+          const T ex = dx * inv_r, ey = dy * inv_r;
+          const T ez = PLANAR ? T(0) : dz * inv_r;
+
+          const int prop_j = s_prop[j];
+          const bool ss = fsi_is_structure(prop_j);
+          T ratio_ij = 1, ratio_ji = 1;
+          if (with_ratio) {
+            ratio_ij = fsi_ratio(s_ratio, type_i, prop_j);
+            ratio_ji = (prop_j >= 0 && prop_j < FSI_TYPE_COUNT)
+                           ? s_ratio[prop_j * FSI_TYPE_COUNT + type_i]
+                           : T(0);
+          }
+
+          // pressureP + FSI interface load: fluid/wall receivers take all
+          // senders, structure receivers only non-structure senders
+          const bool m_p = p.c[P2_RADIUS_P2] - rij2 > T(0);
+          const T q_p = rij * p.c[P2_INV_RADIUS_P];
+          const T omq_p = T(1) - q_p;
+          T radial = 0;
+          if (m_p && !(rs && ss)) {
+            const T dwp = p.c[P2_DWP_COEF] * omq_p;
+            radial = (pp_i + s_pp[j]) * dwp * volume;
+          }
+
+          // pressureA; exactly zero without surface tension
+          if (ST) {
+            bool m_a = m_p;
+            T q_a = q_p, omq_a = omq_p;
+            if (!p.uniform_radii) {
+              m_a = p.c[P2_RADIUS_A2] - rij2 > T(0);
+              q_a = rij * p.c[P2_INV_RADIUS_A];
+              omq_a = T(1) - q_a;
             }
-            const T gr = a_i * gr_sum;
-            fx -= t1x + gr * ex * scale_di;
-            fy -= t1y + gr * ey * scale_di;
-            if (!PLANAR) fz -= t1z + gr * ez * scale_di;
+            if (m_a && !rs) {
+              const T dwa = p.c[P2_NORM_A] * omq_a * (T(1) - T(3) * q_a) /
+                            p.c[P2_RADIUS_A];
+              radial += (pa_i * ratio_ij + s_pa[j] * ratio_ji) * dwa * volume;
+            }
+          }
+
+          // viscosity: field-major, a zero viscosity makes its inverse
+          // infinite and mu_h exactly 0; row-major, mu_h is 0 unless
+          // mu_i + mu_j > 0
+          {
+            bool m_v = m_p;
+            T omq_v = omq_p;
+            if (!p.uniform_radii) {
+              m_v = p.c[P2_RADIUS_V2] - rij2 > T(0);
+              omq_v = T(1) - rij * p.c[P2_INV_RADIUS_V];
+            }
+            if (m_v && !rs) {
+              T udote = (s_vx[j] - vxi) * ex + (s_vy[j] - vyi) * ey;
+              if (!PLANAR) udote += (s_vz[j] - vzi) * ez;
+              T mu_h;
+              if (ROWS) {
+                const T den = visc_i + s_visc[j];
+                mu_h = den > T(0) ? T(2) * visc_i * s_visc[j] / den : T(0);
+              } else {
+                mu_h = T(2) / (visc_i + s_visc[j]);
+              }
+              const T dwv = p.c[P2_DWV_COEF] * omq_v;
+              radial += p.c[P2_C_V] * mu_h * udote * (-dwv) * inv_r * volume;
+            }
+          }
+
+          fx += radial * ex;
+          fy += radial * ey;
+          if (!PLANAR) fz += radial * ez;
+
+          // diffuse interface; zero without surface tension
+          if (ST) {
+            bool m_g = m_p;
+            T omq_g = omq_p;
+            if (!p.uniform_radii) {
+              m_g = p.c[P2_RADIUS_G2] - rij2 > T(0);
+              omq_g = T(1) - rij * p.c[P2_INV_RADIUS_G];
+            }
+            if (m_g && !rs) {
+              const T wgv = p.c[P2_NORM_G] * (omq_g * omq_g);
+              const T dwg = p.c[P2_DWG_COEF] * omq_g;
+              const T wij = ratio_ij * wgv, wji = ratio_ji * wgv;
+              const T dwij = ratio_ij * dwg, dwji = ratio_ji * dwg;
+              const T gcx_j = s_gx[j], gcy_j = s_gy[j];
+              const T t1x = a_i * (gcx_j * wji - gcx_i * wij) * scale_di;
+              const T t1y = a_i * (gcy_j * wji - gcy_i * wij) * scale_di;
+              T gr_sum = (gcx_j * dwji - gcx_i * dwij) * dx +
+                         (gcy_j * dwji - gcy_i * dwij) * dy;
+              T t1z = 0;
+              if (!PLANAR) {
+                const T gcz_j = s_gz[j];
+                t1z = a_i * (gcz_j * wji - gcz_i * wij) * scale_di;
+                gr_sum += (gcz_j * dwji - gcz_i * dwij) * dz;
+              }
+              const T gr = a_i * gr_sum;
+              fx -= t1x + gr * ex * scale_di;
+              fy -= t1y + gr * ey * scale_di;
+              if (!PLANAR) fz -= t1z + gr * ez * scale_di;
+            }
           }
         }
       }
     }
   }
 
+#ifdef FSI_PHASE2_COUNT
+  n_tested = __reduce_add_sync(0xffffffffu, n_tested);
+  n_passed = __reduce_add_sync(0xffffffffu, n_passed);
+  if ((tid & 31) == 0) {
+    atomicAdd(&fsi_p2_counts[0], static_cast<unsigned long long>(n_tested));
+    atomicAdd(&fsi_p2_counts[1], static_cast<unsigned long long>(n_steps));
+    atomicAdd(&fsi_p2_counts[2], static_cast<unsigned long long>(n_passed));
+  }
+#endif
   const size_t n = p.n;
   p.out[i] = fx;
   p.out[n + i] = fy;
@@ -339,6 +492,9 @@ static int launch_phase2(const void* pos, const void* vel, const void* key,
 
 static bool phase2_args_ok(int n, int block, int n_off, int surface_tension,
                            const void* pa, const void* gc) {
+#ifdef FSI_PHASE2_COUNT
+  if (block % 32 != 0) return false;  // the counts reduce over whole warps
+#endif
   return block > 0 && block <= 1024 && n % block == 0 && n_off > 0 &&
          n_off <= FSI_MAX_OFFS &&
          !(surface_tension && (pa == nullptr || gc == nullptr));
@@ -378,9 +534,12 @@ extern "C" int fsi_phase2_sweep(int is_double, const void* pos,
 // Plain C entry point of kernel 5 (row-major rule): mu is the viscosity
 // itself; offs_yz (2 n_off ints), geom (domain_min and cell_width, 6
 // doubles) and ncell (3 ints) are host arrays, support2 the squared frame
-// support.  Otherwise as fsi_phase2_sweep, without the key.
+// support.  The key finds the ring runs only, and must be the one the frame
+// was sorted by from these positions (packed_engine.sort_frame): every
+// valid row's key is then its linear cell.  Otherwise as fsi_phase2_sweep.
 extern "C" int fsi_phase2_rows(int is_double, const void* pos, const void* vel,
-                               const void* prop, const void* pp,
+                               const void* key, const void* prop,
+                               const void* pp,
                                const void* pa, const void* gc, const void* mu,
                                const void* win_start, const void* win_len,
                                void* out, int n, int block, int n_off,
@@ -393,13 +552,13 @@ extern "C" int fsi_phase2_rows(int is_double, const void* pos, const void* vel,
   if (!phase2_args_ok(n, block, n_off, surface_tension, pa, gc)) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_double)
-    return launch_phase2<double>(pos, vel, nullptr, prop, pp, pa, gc, mu,
+    return launch_phase2<double>(pos, vel, key, prop, pp, pa, gc, mu,
                                  win_start, win_len, out, n, block, n_off,
                                  nullptr, offs_yz, geom, ncell, support2,
                                  consts, ratio, cof_a, planar,
                                  surface_tension, uniform_ratio,
                                  uniform_radii, s);
-  return launch_phase2<float>(pos, vel, nullptr, prop, pp, pa, gc, mu,
+  return launch_phase2<float>(pos, vel, key, prop, pp, pa, gc, mu,
                               win_start, win_len, out, n, block, n_off,
                               nullptr, offs_yz, geom, ncell, support2, consts,
                               ratio, cof_a, planar, surface_tension,
@@ -407,3 +566,49 @@ extern "C" int fsi_phase2_rows(int is_double, const void* pos, const void* vel,
 }
 
 extern "C" int fsi_phase2_nconst() { return P2_NCONST; }
+
+// Resident blocks per SM of one phase-2 instance at `block` threads (the
+// occupancy the launch reaches; registers and shared memory decide it), or
+// -1 where the query fails.
+template <typename T, bool ROWS>
+static int phase2_occupancy(int planar, int surface_tension, int block) {
+  int blocks = -1;
+  cudaError_t err;
+  if (planar) {
+    err = surface_tension
+              ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                    &blocks, phase2_sweep_kernel<T, true, true, ROWS>, block, 0)
+              : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                    &blocks, phase2_sweep_kernel<T, true, false, ROWS>, block, 0);
+  } else {
+    err = surface_tension
+              ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                    &blocks, phase2_sweep_kernel<T, false, true, ROWS>, block, 0)
+              : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                    &blocks, phase2_sweep_kernel<T, false, false, ROWS>, block, 0);
+  }
+  return err == cudaSuccess ? blocks : -1;
+}
+
+extern "C" int fsi_phase2_occupancy(int is_double, int rows, int planar,
+                                    int surface_tension, int block) {
+  if (is_double)
+    return rows ? phase2_occupancy<double, true>(planar, surface_tension, block)
+                : phase2_occupancy<double, false>(planar, surface_tension, block);
+  return rows ? phase2_occupancy<float, true>(planar, surface_tension, block)
+              : phase2_occupancy<float, false>(planar, surface_tension, block);
+}
+
+#ifdef FSI_PHASE2_COUNT
+// The checking build's counts (see fsi_p2_counts) of the launches since the
+// last call, into out[3]; then clears them.  Returns a cudaError_t (0 =
+// success).
+extern "C" int fsi_phase2_counts(unsigned long long* out) {
+  cudaError_t err = cudaMemcpyFromSymbol(out, fsi_p2_counts,
+                                         sizeof(fsi_p2_counts));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const unsigned long long zero[3] = {0, 0, 0};
+  return static_cast<int>(
+      cudaMemcpyToSymbol(fsi_p2_counts, zero, sizeof(zero)));
+}
+#endif

@@ -20,13 +20,18 @@
 // Every family then applies its own radius test.
 //
 // Design: one thread block per receiver block, one thread per receiver with
-// its accumulators in registers.  Each window is walked exactly from start
-// to start + len in tiles of FSI_TILE senders staged through shared memory
-// (coalesced loads; in the pair loop all threads read the same sender, a
-// shared-memory broadcast).  Keys are compared as int32.  No atomics: each
-// receiver sums its own senders in a fixed order, so results are
-// deterministic.  Compile WITHOUT -use_fast_math: the viscosity term relies
-// on 2/(inf + x) == 0 and the masks on rij2 > 0 exactly.
+// its accumulators in registers.  Phases 1 and 3 walk each window exactly
+// from start to start + len in tiles of FSI_TILE senders staged through
+// shared memory (coalesced loads; in the pair loop all threads read the same
+// sender, a shared-memory broadcast).  Phase 2 walks only each receiver's
+// ring run: the frame is sorted by key, so the senders in a receiver's ring
+// for one offset are one contiguous run of rows of the window, found by
+// binary search on the window's keys staged in shared memory
+// (fsi_lower_bound); see phase2_sweep.cu.
+// Keys are compared as int32.  No atomics in the sums: each receiver sums
+// its own senders in a fixed order, so results are deterministic.  Compile
+// WITHOUT -use_fast_math: the viscosity term relies on 2/(inf + x) == 0 and
+// the masks on rij2 > 0 exactly.
 #pragma once
 
 #include <climits>
@@ -150,4 +155,39 @@ __device__ __forceinline__ FsiRing fsi_ring(int cx, int cy, int cz, int o,
 
 __device__ __forceinline__ bool fsi_in_ring(int lin, FsiRing r) {
   return static_cast<unsigned>(lin) - static_cast<unsigned>(r.lo) <= r.span;
+}
+
+// ---------------------------------------------------------------------------
+// Used by phase 2 only for now.
+
+// First index r in [lo, hi) with key[r] >= v, or hi: a lower bound on keys
+// sorted over [lo, hi) (phase 2 searches a window's keys staged in shared
+// memory).
+__device__ __forceinline__ int fsi_lower_bound(const int* key, int lo, int hi,
+                                               int v) {
+  while (lo < hi) {
+    const int mid = lo + ((hi - lo) >> 1);
+    if (key[mid] < v)
+      lo = mid + 1;
+    else
+      hi = mid;
+  }
+  return lo;
+}
+
+// Asynchronous copy of one 4- or 8-byte element from device memory to shared
+// memory (cp.async, sm_80 and later): the copies of a chunk all start
+// before any is waited for, and go to shared memory without a register.
+// The copying thread sees its own copies after fsi_async_wait(); the other
+// threads after a __syncthreads() that follows it.
+template <typename E>
+__device__ __forceinline__ void fsi_async_copy(E* dst, const E* src) {
+  static_assert(sizeof(E) == 4 || sizeof(E) == 8, "4- or 8-byte elements");
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(d),
+               "l"(src), "n"(sizeof(E)));
+}
+
+__device__ __forceinline__ void fsi_async_wait() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }

@@ -8,11 +8,15 @@ are linked into one shared library that ``ctypes`` loads.  The build happens
 at first use (never at import), from the sources in the package alone, into
 ``particlemethod_fsi_tpu_torch/_build/<hash of the sources>/`` so that an
 edit rebuilds.  A failed build raises with the compiler's output; nothing
-falls back.
+falls back.  :func:`build` also makes other builds (another source tree,
+or a checking build with ``-D`` defines) for comparisons, and
+:func:`using` sends the wrappers' launches to one of them for a block of
+code; the solver uses neither.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -33,7 +37,6 @@ NVCC_FLAGS = (
 )
 
 _lib = None
-_lib_dir = None  # build directory of the library in use
 
 
 def _find_nvcc() -> str:
@@ -50,22 +53,21 @@ def _find_nvcc() -> str:
         "cannot be built on this machine")
 
 
-def _source_hash(files) -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def _source_hash(files, flags) -> str:
+    h = hashlib.sha256(" ".join((*NVCC_FLAGS, *flags)).encode())
     for f in files:
         h.update(f.name.encode())
         h.update(f.read_bytes())
     return h.hexdigest()[:16]
 
 
-def _build(sources, out_dir: Path) -> Path:
+def _build(sources, out_dir: Path, flags) -> Path:
     nvcc = _find_nvcc()
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = []
     for src in sources:
         obj = out_dir / (src.stem + ".o")
-        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC_DIR), "-c", str(src),
-               "-o", str(obj)]
+        cmd = [nvcc, *NVCC_FLAGS, *flags, "-c", str(src), "-o", str(obj)]
         procs.append((src, obj, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     log, failed = [], []
@@ -116,15 +118,20 @@ def _declare(lib: ctypes.CDLL) -> None:
         ci, ci, ci, ip, dp, ip, dp, dp,  # n block n_off offs_yz geom ncell consts ratio
         ci, ci, ci, ci, vp,  # planar st with_ratio uniform_radii stream
     ]
-    lib.fsi_phase2_rows.restype = ci
-    lib.fsi_phase2_rows.argtypes = [
+    lib.fsi_virial_rows.restype = ci
+    lib.fsi_virial_rows.argtypes = [
         ci, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp,  # .. pp pa gc mu ws wl out
         ci, ci, ci, ip, dp, ip,  # n block n_off offs_yz geom ncell
         dp, dp, dp, ctypes.c_double,  # consts ratio cof_a support2
         ci, ci, ci, ci, vp,  # planar st uniform_ratio uniform_radii stream
     ]
-    lib.fsi_virial_rows.restype = ci
-    lib.fsi_virial_rows.argtypes = list(lib.fsi_phase2_rows.argtypes)
+    # phase 2 also takes the sorted key, from which it finds the ring runs
+    lib.fsi_phase2_rows.restype = ci
+    lib.fsi_phase2_rows.argtypes = [
+        *lib.fsi_virial_rows.argtypes[:3], vp,  # is_double pos vel key
+        *lib.fsi_virial_rows.argtypes[3:]]
+    lib.fsi_phase2_occupancy.restype = ci
+    lib.fsi_phase2_occupancy.argtypes = [ci, ci, ci, ci, ci]  # dbl rows planar st block
     lib.fsi_bf16_microbench.restype = ci
     lib.fsi_bf16_microbench.argtypes = [
         ci, vp, vp, vp, ci, ci, ci, ci, vp,  # bf16 x y partial b w reps splits stream
@@ -137,27 +144,48 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.fsi_phase2_nconst.argtypes = []
 
 
+def build(csrc: Path = CSRC_DIR, defines=()) -> ctypes.CDLL:
+    """The kernels' shared library built from the sources under ``csrc``,
+    with ``-D<name>`` for each of ``defines``, into
+    ``_build/<hash of the sources and flags>/`` (reused where it exists)."""
+    sources = sorted(Path(csrc).glob("*.cu"))
+    if not sources:
+        raise RuntimeError(f"no CUDA sources under {csrc}")
+    flags = tuple(f"-D{d}" for d in defines)
+    out_dir = BUILD_ROOT / _source_hash(
+        sources + sorted(Path(csrc).glob("*.cuh")), flags)
+    lib_path = out_dir / LIB_NAME
+    if not lib_path.exists():
+        _build(sources, out_dir, flags)
+    lib = ctypes.CDLL(str(lib_path))
+    _declare(lib)
+    return lib
+
+
 def load() -> ctypes.CDLL:
     """The kernels' shared library, built first if this source tree has not
     been built yet."""
-    global _lib, _lib_dir
-    if _lib is not None:
-        return _lib
-    sources = sorted(CSRC_DIR.glob("*.cu"))
-    if not sources:
-        raise RuntimeError(f"no CUDA sources under {CSRC_DIR}")
-    tag = _source_hash(sources + sorted(CSRC_DIR.glob("*.cuh")))
-    lib_path = BUILD_ROOT / tag / LIB_NAME
-    if not lib_path.exists():
-        lib_path = _build(sources, BUILD_ROOT / tag)
-    lib = ctypes.CDLL(str(lib_path))
-    _declare(lib)
-    _lib, _lib_dir = lib, lib_path.parent
-    return lib
+    global _lib
+    if _lib is None:
+        _lib = build()
+    return _lib
+
+
+@contextlib.contextmanager
+def using(lib: ctypes.CDLL):
+    """Within the block, :func:`load` returns ``lib`` (a library of
+    :func:`build`), so the wrappers launch its kernels: for checks and
+    comparisons of builds on the same inputs."""
+    global _lib
+    saved = load()
+    _lib = lib
+    try:
+        yield lib
+    finally:
+        _lib = saved
 
 
 def build_log() -> str:
     """The compiler's output of the build in use (registers, shared memory
     and spills of each kernel, from ``-Xptxas -v``)."""
-    load()
-    return (_lib_dir / "build.log").read_text()
+    return (Path(load()._name).parent / "build.log").read_text()

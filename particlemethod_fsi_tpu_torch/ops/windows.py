@@ -35,7 +35,10 @@ point of porting them separately:
   within one cell of the receiver's in x and exactly ``oy`` (and in 3-D
   ``oz``) away in y (z) -- not the sort key;
 * **validity**: ``prop_j >= 0`` (pad rows carry the sentinel key but may sit
-  inside the fluid), ``j != i``, ``rij2 > 0`` and ``rij2 <= support^2``;
+  inside the fluid), ``j != i``, ``rij2 > 0`` and ``rij2 <= support^2``
+  (the phase-2 kernel walks only each receiver's ring run, which it finds
+  from the key, and pads, whose key ``num_cells`` lies in no ring, are out
+  of every run before these tests);
 * **the neighbour count is always produced**, and ``mu_h = 2 mu_i mu_j /
   (mu_i + mu_j)`` (0 where the sum is not positive) comes from ``mu``
   itself, not from an inverse-viscosity field.
@@ -248,6 +251,58 @@ def _phase2_consts(ks: KernelSet, volume: float, two_dimensional: bool):
         1.0 / ks.r2g * ks.radius_g * (volume / ks.spacing),
         ks.cof_k * ks.cof_k,
     ]
+
+
+# ---------------------------------------------------------------------------
+# ring runs (what the phase-2 kernels walk; for tests and chip_smoke.py)
+# ---------------------------------------------------------------------------
+
+
+def clip_runs(key, vlo, vhi, win_start, win_len, block: int):
+    """Rows ``[lo, hi)`` whose key lies in ``[vlo, vhi]`` (``[N, n_off]``
+    each, one row per receiver), clipped to the receiver's block window:
+    two lower bounds on the sorted key, as the phase-2 kernels take them.
+    Returns ``(lo, hi)`` int64 ``[N, n_off]``."""
+    n = key.shape[0]
+    key64 = key.long()
+    blk = torch.arange(n, device=key.device) // block
+    ws = win_start.long()[blk]
+    we = ws + win_len.long()[blk]
+    lo = torch.searchsorted(key64, vlo.contiguous())
+    hi = torch.searchsorted(key64, (vhi + 1).contiguous())
+    lo = torch.minimum(torch.maximum(lo, ws), we)
+    hi = torch.minimum(torch.maximum(hi, lo), we)
+    return lo, hi
+
+
+def ring_runs_rows(frame: SortedFrame, win_start, win_len, grid: CellGrid,
+                   block: int):
+    """Each receiver's ring run per row offset under the row-major rule, as
+    kernel 5 (``fsi_phase2_rows``) finds it: the ring of
+    :func:`position_rule` is one range of linear cells (the receiver's cell
+    row ``(cy + oy, cz + oz)``, x from ``cx - 1`` to ``cx + 1`` clipped to
+    the grid; empty where that row lies outside it), and on a frame sorted
+    from these positions the valid senders in it are the rows whose key
+    lies in that range (a pad's key ``num_cells`` lies in none).  Returns
+    ``(lo, hi)`` int64 ``[N, n_off]``, clipped to the block's window.  Used
+    by the tests and ``chip_smoke.py``; nothing on the main path calls it."""
+    cells = cell_coords(frame.pos, grid).long()
+    nx, ny, nz = grid.cell_count
+    _, offs_yz = row_offsets(grid)
+    dev = frame.pos.device
+    oy = torch.tensor([yz[0] for yz in offs_yz], device=dev)
+    oz = torch.tensor([yz[1] for yz in offs_yz], device=dev)
+    cz = cells[:, 2] if nz > 1 else torch.zeros_like(cells[:, 2])
+    ty = cells[:, 1, None] + oy
+    tz = cz[:, None] + oz
+    x0 = torch.clamp_min(cells[:, 0] - 1, 0)[:, None]
+    x1 = torch.clamp_max(cells[:, 0] + 1, nx - 1)[:, None]
+    row = nx * (ty + ny * tz)
+    empty = (ty < 0) | (ty >= ny) | (tz < 0) | (tz >= nz)
+    nothing = torch.full_like(row, -(2**31) + 1)  # the kernel's empty ring
+    return clip_runs(frame.key, torch.where(empty, nothing, x0 + row),
+                     torch.where(empty, nothing, x1 + row), win_start,
+                     win_len, block)
 
 
 # ---------------------------------------------------------------------------
@@ -772,7 +827,8 @@ def phase1_fields(frame: SortedFrame, grid: CellGrid, ks: KernelSet,
 def _launch_rows(name: str, rows: int, frame, pp, pa, gc, mu, win_start,
                  win_len, grid, ks, cfg, tables, volume, two_dimensional):
     """Launch ``fsi_phase2_rows`` or ``fsi_virial_rows`` (one argument
-    list) and return its ``[rows, N]`` output."""
+    list, and phase 2 also takes the sorted key, from which it finds each
+    receiver's ring run) and return its ``[rows, N]`` output."""
     n_off, offs_yz, geom, ncell = _rows_geometry(grid)
     _check_frame(frame, win_start, win_len, n_off, cfg.block)
     _check_phase2_fields(frame, pp, pa, gc, mu, cfg, "mu")
@@ -786,9 +842,10 @@ def _launch_rows(name: str, rows: int, frame, pp, pa, gc, mu, win_start,
     st = cfg.surface_tension
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
+        key = (frame.key.data_ptr(),) if name == "phase2_rows" else ()
         err = getattr(lib, f"fsi_{name}")(
             int(dtype == torch.float64), frame.pos.data_ptr(),
-            frame.vel.data_ptr(), frame.prop.data_ptr(), pp.data_ptr(),
+            frame.vel.data_ptr(), *key, frame.prop.data_ptr(), pp.data_ptr(),
             pa.data_ptr() if st else None, gc.data_ptr() if st else None,
             mu.data_ptr(), win_start.data_ptr(), win_len.data_ptr(),
             out.data_ptr(), n, cfg.block, n_off, offs_yz, geom, ncell,
@@ -824,7 +881,10 @@ def phase2_rows_sweep(frame: SortedFrame, pp, pa, gc, mu, win_start, win_len,
     A CUDA frame goes through the hand-written kernel
     (``csrc/phase2_sweep.cu``, ``fsi_phase2_rows``, replacing the TPU
     ``pallas_pairwise._phase2_kernel``) or the call raises; only a CPU frame
-    takes :func:`phase2_rows_sweep_plain`."""
+    takes :func:`phase2_rows_sweep_plain`.  The kernel finds each
+    receiver's ring run from the key (:func:`ring_runs_rows`), so the frame
+    must be sorted from these positions (:func:`packed_engine.sort_frame`;
+    the row-major backend sorts every step)."""
     if frame.pos.is_cuda:
         return _launch_rows("phase2_rows", 3, frame, pp, pa, gc, mu,
                             win_start, win_len, grid, ks, cfg, tables, volume,

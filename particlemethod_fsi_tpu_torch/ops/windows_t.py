@@ -35,13 +35,14 @@ incremented where the kernel is launched and nowhere else.
 
 Bound on an H100: by the roofline count (each input read once, each output
 written once, against the pair math of the true neighbour pairs only) all
-three sweeps are bound by bytes, some tens of bytes a particle.  The simple design
-here does not reach that bound: every receiver tests every sender of its
-block's windows (an order of magnitude more candidates than neighbours), so
-its time goes to shared-memory reads and the ring and radius tests.  See the
-notes in ``csrc/phase1_sweep.cu``, ``csrc/phase2_sweep.cu`` and
-``csrc/virial_sweep.cu``; the measured
-times stand in ``PERF.md``.
+three sweeps are bound by bytes, some tens of bytes a particle.  The kernels
+do not reach that bound.  Phases 1 and 3 test every sender of a block's
+windows (an order of magnitude more candidates than neighbours), so their
+time goes to shared-memory reads and the ring and radius tests; phase 2
+walks only each receiver's ring run, a third of that (:func:`ring_runs`
+computes the runs for the tests).  See the notes in ``csrc/phase1_sweep.cu``,
+``csrc/phase2_sweep.cu`` and ``csrc/virial_sweep.cu``; the measured times
+stand in ``PERF.md``.
 """
 
 from __future__ import annotations
@@ -69,6 +70,7 @@ from particlemethod_fsi_tpu_torch.ops.windows import (  # noqa: F401 (re-exporte
     _phase1_consts,
     _phase2_consts,
     _raise_on,
+    clip_runs,
     compute_windows,
     eos_fields,
     key_rule,
@@ -241,6 +243,19 @@ def phase2_sweep(frame: SortedFrame, pp, pa, gc, invmu, win_start, win_len,
     return phase2_sweep_plain(frame, pp, pa, gc, invmu, win_start, win_len,
                               offs, ks, cfg, tables, volume=volume,
                               two_dimensional=two_dimensional)
+
+
+def ring_runs(frame: SortedFrame, win_start, win_len, offs, block: int):
+    """Each receiver's ring run per row offset under the key rule, as kernel
+    2 (``fsi_phase2_sweep``) finds it: the senders whose key lies in
+    ``key_i + off - 1 .. key_i + off + 1`` are one run of rows of the sorted
+    frame.  Returns ``(lo, hi)`` int64 ``[N, n_off]``, clipped to the
+    block's window.  Used by the tests and ``chip_smoke.py``; nothing on the
+    main path calls it."""
+    off = torch.as_tensor(offs, dtype=torch.long, device=frame.key.device)
+    centre = frame.key.long()[:, None] + off
+    return clip_runs(frame.key, centre - 1, centre + 1, win_start, win_len,
+                     block)
 
 
 def _phase2_inputs_t(fields: dict, cfg: WindowConfig):
