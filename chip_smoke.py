@@ -16,8 +16,8 @@ fault:
 1. the card: name and power limit as ``nvidia-smi`` gives them;
 2. build: the CUDA kernels under ``particlemethod_fsi_tpu_torch/csrc/`` are
    compiled from source (seconds printed as set-up), and beside them a
-   checking build with ``-DFSI_PHASE2_COUNT``, whose phase-2 kernels count
-   what they walk;
+   checking build with ``-DFSI_WALK_COUNT``, whose phase-1 and phase-2
+   kernels count what they walk;
 3. kernels: each hand-written kernel against its plain PyTorch version on
    the card -- (a) the ``double`` instances of kernels 1-6 on small seeded
    frames for every specialization branch, 2-D and 3-D, rtol 1e-12, and the
@@ -27,11 +27,13 @@ fault:
    path, where
    the kernel must lie as close to a float64 evaluation as the plain
    float32 version does; timed with inputs warm in L2 (back-to-back
-   launches) and cold (L2 flushed before every launch); the phase-2
-   kernels (2 and 5) also launched twice and held bit-equal, and once
-   through the checking build, bit-equal again, whose count of the senders
-   each receiver pre-tests must equal the plain ring runs' total; printed
-   beside the window senders;
+   launches) and cold (L2 flushed before every launch), kernel 1 also with
+   the neighbour count; the phase-1 and phase-2 kernels (1, 4, 2 and 5)
+   also launched twice and held bit-equal, and once through the checking
+   build, bit-equal again, whose count of the senders each receiver
+   pre-tests must equal the plain ring runs' total (and for phase 1, the
+   senders passing the pre-test the pairs inside the kernel's reach);
+   printed beside the window senders;
 4. a small coupled scene in float64 on both backends, card (kernels)
    against CPU (plain versions), ten steps; and the gate case (6,724
    particles, float64, 100 steps through ``load_case``) on both backends
@@ -40,10 +42,12 @@ fault:
    at ``n_side=1000`` (1,012,666 particles), float32, a warm-up chunk and
    three timed chunks of 20 steps through ``Simulation.run_chunk``; finite
    positions, launch counts equal to the steps taken, rebuild count,
-   ms/step, and where the step's time goes from CUDA events; then (field-
-   major) guarded against unguarded chunks, and the split of one
-   ``diagnostics`` call; then frames of 2^24 cells or more, which
-   ``pallas_t`` hands to the row-major kernels;
+   ms/step, and where the step's time goes from CUDA events; the time of
+   the wrap check that every chunk makes on every step's state; then
+   (field-major) guarded against unguarded chunks, and the split of one
+   ``diagnostics`` call;
+   then frames of 2^24 cells or more, which ``pallas_t`` hands to the
+   row-major kernels;
 6. the command-line path of each backend: the same scene written as
    ``.data`` and ``.grid`` into a temporary directory, ``cli.main`` in
    process on the card for one output interval with the watchdog on;
@@ -505,15 +509,26 @@ def check_and_time_main_frame(sim, state, counting) -> list:
     rows = []
 
     p1 = dict(support=grid.support, count=False)
+    run1 = lambda **kw: pwt.phase1_sweep(  # noqa: E731
+        frame, *win, offs, ks, wcfg, tables, **{**p1, **kw})
     rows.append(kernel_row(
-        "phase1_sweep", "phase1_sweep.cu", f"{src}:172",
-        lambda: pwt.phase1_sweep(frame, *win, offs, ks, wcfg, tables, **p1),
+        "phase1_sweep", "phase1_sweep.cu", f"{src}:172", run1,
         lambda: pwt.phase1_sweep_plain(frame, *win, offs, ks, wcfg, tables,
                                        **p1),
         lambda: pwt.phase1_sweep_plain(frame64, *win, offs, ks, wcfg,
                                        tables64, **p1),
         n * PHASE1_BYTES_PER_PARTICLE + table_bytes,
         true_pairs * PHASE1_FLOP_PER_PAIR))
+    # with the neighbour count (every dump): the reach widens to the support
+    rows[0].update(count_ms=time_ms(lambda: run1(count=True), 50),
+                   count_cold_l2_ms=time_ms_cold(lambda: run1(count=True), 10))
+    # the pre-test's reach is the kernel radius here (uniform radii): the
+    # senders passing it are the pairs the kernel's own count finds within
+    # that radius (the same rij2), and the plain count's
+    own = float(run1(support=ks.radius_p, count=True)[pwt.P1_COUNT]
+                .double().sum())
+    walk1 = ring_walk("phase1_sweep", run1, runs, rows[0], counting,
+                      passed=(own, true_pairs))
 
     # phase 2 and the virial on the fields of phase 1 + EOS: the same
     # float32-valued inputs for all three evaluations
@@ -537,9 +552,12 @@ def check_and_time_main_frame(sim, state, counting) -> list:
     walk = ring_walk("phase2_sweep", lambda: pwt.phase2_sweep(*a32, **kw),
                      runs, rows[1], counting)
     print(f"kernels at 1M (pallas_t frame): frame rows {n}, window senders "
-          f"tested per receiver {tested_pairs / n:.1f} (kernels 1 and 3), "
-          f"{walk}, pairs inside the kernel radius per receiver "
-          f"{true_pairs / n:.2f}, longest window {int(win[1].max())}")
+          f"per receiver {tested_pairs / n:.1f} (kernel 3 tests them all); "
+          f"kernel 1: {walk1}; kernel 2: {walk}; pairs inside the kernel "
+          f"radius per receiver {true_pairs / n:.2f}, longest window "
+          f"{int(win[1].max())}; kernel 1 with the neighbour count "
+          f"{rows[0]['count_ms']:.4f} ms warm, "
+          f"{rows[0]['count_cold_l2_ms']:.4f} cold")
     return rows
 
 
@@ -560,6 +578,7 @@ def check_and_time_rows_frame(sim, state, counting) -> list:
     src = "particlemethod_fsi_tpu/ops/pallas_pairwise.py"
     rows = []
     p1 = (frame, *win, grid, ks, wcfg, tables)
+    runs = pw.ring_runs_rows(frame, *win, grid, wcfg.block)
     rows.append(kernel_row(
         "phase1_rows", "phase1_sweep.cu", f"{src}:199",
         lambda: pw.phase1_rows_sweep(*p1),
@@ -587,6 +606,13 @@ def check_and_time_rows_frame(sim, state, counting) -> list:
                  f"{d:.3e}")
     if not torch.equal(f4["neighbor_count"], f1["neighbor_count"]):
         fail("phase1_rows against phase1_sweep at 1M: neighbour counts differ")
+    # the pre-test's reach is the support, the count's radius: the senders
+    # passing it are the kernel's own count, and the plain version's
+    walk4 = ring_walk(
+        "phase1_rows", lambda: pw.phase1_rows_sweep(*p1), runs, rows[0],
+        counting, passed=(float(f4["neighbor_count"].double().sum()),
+                          float(pw.phase1_rows_sweep_plain(*p1)[pw.P1_COUNT]
+                                .double().sum())))
 
     pp, pa, gc, mu = (f4["pressure_p"], f4["pressure_a"],
                       f4["gravity_center"].contiguous(), f4["mu"])
@@ -607,33 +633,36 @@ def check_and_time_rows_frame(sim, state, counting) -> list:
             lambda p=plain: p(*a64, **kw), n * per_particle + table_bytes,
             true_pairs * per_pair + n * ROWS_FLOP_PER_PARTICLE))
     walk = ring_walk("phase2_rows", lambda: pw.phase2_rows_sweep(*a32, **kw),
-                     pw.ring_runs_rows(frame, *win, grid, wcfg.block), rows[1],
-                     counting)
+                     runs, rows[1], counting)
     print(f"kernels at 1M (pallas frame): kernel 4's fields against kernel "
           f"1's on the same frame: largest difference {diff4:.3e}, neighbour "
-          f"counts equal; window senders tested per receiver "
-          f"{float(win[1].double().sum()) * wcfg.block / n:.1f} (kernels 4 "
-          f"and 6), {walk}; pairs inside the kernel radius per receiver "
-          f"{true_pairs / n:.2f}")
+          f"counts equal; window senders per receiver "
+          f"{float(win[1].double().sum()) * wcfg.block / n:.1f} (kernel 6 "
+          f"tests them all); kernel 4: {walk4}; kernel 5: {walk}; pairs "
+          f"inside the kernel radius per receiver {true_pairs / n:.2f}")
     return rows
 
 
-def ring_walk(name, run, runs, row, counting) -> str:
-    """Two launches of a phase-2 kernel must be bit-equal (each receiver
-    sums its senders in a fixed order, no atomics), and a third through the
-    checking build ``counting`` (``-DFSI_PHASE2_COUNT``) bit-equal to them.
-    That launch counts in the kernel what it walked: the senders its
-    receivers pre-tested, which must be exactly the senders of the ring
-    runs that ``runs`` (the plain ``ring_runs``) gives, the warps' pre-test
-    steps, and the senders that passed the pre-test.  Returns the text of
-    those counts at 1M, which also go into the kernel's row of the
-    ``kernels`` line."""
+def ring_walk(name, run, runs, row, counting, passed=None) -> str:
+    """Two launches of a phase-1 or phase-2 kernel must be bit-equal (each
+    receiver sums its senders in a fixed order, no atomics), and a third
+    through the checking build ``counting`` (``-DFSI_WALK_COUNT``) bit-equal
+    to them.  That launch counts in the kernel what it walked: the senders
+    its receivers pre-tested, which must be exactly the senders of the ring
+    runs that ``runs`` (the plain ``ring_runs`` or ``ring_runs_rows``)
+    gives, the warps' pre-test steps, and the senders that passed the
+    pre-test.  ``passed`` = (the kernel's own count of the pairs within its
+    reach, the plain version's): the senders passing must equal the first
+    exactly and the second as the neighbour counts of ``judge`` do (a pair
+    within one float32 rounding of the radius may fall either side).
+    Returns the text of those counts at 1M, which also go into the kernel's
+    row of the ``kernels`` line."""
     import ctypes
     import torch
     from particlemethod_fsi_tpu_torch.ops import cuda_loader
 
     counts = (ctypes.c_ulonglong * 3)()
-    read = counting.fsi_phase2_counts
+    read = getattr(counting, f"fsi_{name.split('_')[0]}_counts")
     read.restype, read.argtypes = ctypes.c_int, [ctypes.c_void_p]
     a, b = run(), run()
     torch.cuda.synchronize()
@@ -641,12 +670,12 @@ def ring_walk(name, run, runs, row, counting) -> str:
         fail(f"{name} at 1M: two launches differ by "
              f"{float((a - b).abs().max()):.3e}")
     if read(ctypes.addressof(counts)) != 0:  # clears them
-        fail(f"{name}: fsi_phase2_counts failed")
+        fail(f"{name}: the checking build's counts could not be read")
     with cuda_loader.using(counting):
         c = run()
     torch.cuda.synchronize()
     if read(ctypes.addressof(counts)) != 0:
-        fail(f"{name}: fsi_phase2_counts failed")
+        fail(f"{name}: the checking build's counts could not be read")
     if not torch.equal(a, c):
         fail(f"{name} at 1M: the counting build differs by "
              f"{float((a - c).abs().max()):.3e}")
@@ -656,19 +685,28 @@ def ring_walk(name, run, runs, row, counting) -> str:
     if counts[0] != int(length.sum()):
         fail(f"{name} at 1M: the kernel pre-tested {counts[0]} senders, the "
              f"receivers' ring runs hold {int(length.sum())}")
+    text = ""
+    if passed is not None:
+        own, plain = passed
+        if counts[2] != own or abs(counts[2] - plain) > 1e-5 * n:
+            fail(f"{name} at 1M: {counts[2]} senders passed the pre-test; "
+                 f"pairs within its reach {own:.0f} by the kernel's count, "
+                 f"{plain:.0f} by the plain version's")
+        text = (f" (the pairs within its reach: the kernel's count exactly, "
+                f"the plain version's {plain / n:.2f})")
     warps = n // 32
-    tested, steps, passed = counts[0] / n, counts[1] / warps, counts[2] / n
+    tested, steps, npass = counts[0] / n, counts[1] / warps, counts[2] / n
     plain_steps = float(
         length.double().view(warps, 32, -1).max(dim=1).values.sum()) / warps
     row.update(ring_senders_tested_per_receiver=tested,
                pretest_steps_per_warp=steps,
-               senders_passed_per_receiver=passed)
-    return (f"counted in kernel {name}'s checking build (bit-equal): ring "
-            f"senders pre-tested per receiver {tested:.2f} (the plain ring "
-            f"runs' total, exactly), pre-test steps per warp {steps:.2f} "
-            f"(the longest run of 32 lanes, from the plain runs "
+               senders_passed_per_receiver=npass)
+    return (f"counted in the checking build (bit-equal): ring senders "
+            f"pre-tested per receiver {tested:.2f} (the plain ring runs' "
+            f"total, exactly), pre-test steps per warp {steps:.2f} (the "
+            f"longest run of 32 lanes, from the plain runs "
             f"{plain_steps:.2f}), senders passing the pre-test per receiver "
-            f"{passed:.2f}; two launches bit-equal")
+            f"{npass:.2f}{text}; two launches bit-equal")
 
 
 def _row(name, source, replaces, err, ms, cold_ms, plain_ms, nbytes, flops):
@@ -780,6 +818,17 @@ def run_main_path(backend: str):
     events, sim.profile_events = sim.profile_events, None
     counts = dict(pw.launch_counts)
     steps = CHUNK * (TIMED_CHUNKS + 1)
+    # the wrap check that every chunk makes on the state it starts from and
+    # on each state a step returns (a reduction a state, one read a chunk)
+    from particlemethod_fsi_tpu_torch.solver import valid_extremes
+
+    invalid = state.prop < 0
+    torch.cuda.synchronize()
+    t0 = time.time()
+    for _ in range(TIMED_CHUNKS):
+        sim._refuse_wrap([valid_extremes(state.pos, invalid)
+                          for _ in range(CHUNK + 1)])
+    wrap_ms = (time.time() - t0) * 1e3 / TIMED_CHUNKS
 
     if not bool(torch.isfinite(state.pos).all()):
         fail("main path: positions are not all finite")
@@ -821,7 +870,9 @@ def run_main_path(backend: str):
           f"{[round(m, 3) for m in chunk_ms]}, median {ms:.3f} ms/step, "
           f"{sim.n / ms * 1e3:.4g} particle-steps/s, max speed {speed:.4f} "
           f"m/s, peak device memory "
-          f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
+          f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB; the wrap "
+          f"check {wrap_ms:.4f} ms a chunk of {CHUNK} (host clock): "
+          f"{wrap_ms / CHUNK:.4f} ms/step")
     print(f"main path ({backend}), ms/step by section (CUDA events, last "
           "chunk): " + json.dumps({k: round(v, 4) for k, v in breakdown.items()})
           + f"; sum {sum(breakdown.values()):.3f} of {chunk_ms[-1]:.3f}")
@@ -1248,11 +1299,11 @@ def main() -> int:
     # counts what the phase-2 kernels walk: all nvcc processes at once
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
         checking = pool.submit(cuda_loader.build, cuda_loader.CSRC_DIR,
-                               ("FSI_PHASE2_COUNT",))
+                               ("FSI_WALK_COUNT",))
         cuda_loader.load()
         counting = checking.result()
     print(f"build: kernels compiled from csrc/ in {time.time() - t0:.1f} s, "
-          f"with the phase-2 checking build (set-up)")
+          f"with the checking build of the ring-run walks (set-up)")
     entry = ""
     for line in cuda_loader.build_log().splitlines():
         if "Compiling entry function" in line:
@@ -1260,19 +1311,21 @@ def main() -> int:
         elif "Used" in line and "registers" in line:
             print(f"  ptxas: {entry}: {line.split(':', 1)[1].strip()}")
         elif "bytes spill" in line and (
-                "phase2" in entry
+                "phase1" in entry or "phase2" in entry
                 or "0 bytes spill stores, 0 bytes spill loads" not in line):
             print(f"  ptxas: {entry}: {line.strip()}")
     lib = cuda_loader.load()
-    occupancy = {
-        f"{'double' if dbl else 'float'},{'rows' if rule else 'key'},"
-        f"{'planar' if planar else '3d'}{',st' if st else ''}":
-            lib.fsi_phase2_occupancy(dbl, rule, planar, st, 64)
-        for dbl in (0, 1) for rule in (0, 1) for planar in (1, 0)
-        for st in (0, 1)}
-    print("phase 2 (kernels 2 and 5), resident blocks of 64 threads per SM "
-          "(cudaOccupancyMaxActiveBlocksPerMultiprocessor): "
-          + json.dumps(occupancy))
+    for phase, kernels in ((1, "kernels 1 and 4"), (2, "kernels 2 and 5")):
+        query = getattr(lib, f"fsi_phase{phase}_occupancy")
+        occupancy = {
+            f"{'double' if dbl else 'float'},{'rows' if rule else 'key'},"
+            f"{'planar' if planar else '3d'}{',st' if st else ''}":
+                query(dbl, rule, planar, st, 64)
+            for dbl in (0, 1) for rule in (0, 1) for planar in (1, 0)
+            for st in (0, 1)}
+        print(f"phase {phase} ({kernels}), resident blocks of 64 threads per "
+              "SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor): "
+              + json.dumps(occupancy))
 
     device = torch.device("cuda", 0)
     worst = check_small_cases(device)

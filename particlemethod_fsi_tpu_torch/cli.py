@@ -332,7 +332,9 @@ def run(args) -> int:
         c_explicit += _time.time() - t0
         time += n_steps * dt
         i_step = seq(time)
-        # (no periodic-ghost upkeep here yet: ghost_overflow is always 0)
+        # no periodic ghosts yet, so ghost_overflow is always 0: a chunk
+        # refuses (raises) a state whose pairs span the periodic boundary,
+        # and that error ends the run before anything more is written
         log.metric(step=i_step, time=time, chunk=n_steps,
                    chunk_seconds=_time.time() - t0, ghost_overflow=0)
 

@@ -20,22 +20,43 @@
 // read once, the wp sum and the divergence written), some ten microseconds
 // at 1M particles; the pair math of the true neighbour pairs (about 20 a
 // receiver in 2-D) needs less time than that at the float32 rate, so by the
-// roofline the kernel is bound by bytes.  As written it moves about twice
-// that: pos and vel are staged as [N,3] rows, z included, and all 7 output
-// rows are written, the zero ones too.  This simple design is far from
-// that bound: a receiver tests every sender of its block's windows, an order
-// of magnitude more candidates than neighbours, and that candidate loop
-// (shared-memory reads, the ring test, the squared-radius test) is where the
-// time goes.  What the design does about it: sender tiles are staged once
-// per block in shared memory and read as broadcasts, the ring and one
-// squared-radius pre-test reject a pair before any rsqrt, and the kernel
-// norms are hoisted out of the sums.  Cutting the candidates per receiver
-// (narrower windows per sub-block, a cell-run skip) is left to later work.
-// The row-major rule reads the type where the key rule reads the key (the
-// same bytes), and stages one linear cell index a sender, computed from the
-// position by one true divide an axis when the tile is staged; its exact
-// ring is one range of linear cells a receiver and offset, so a candidate
-// costs one shared load and one compare, as with the key (see fsi_ring).
+// roofline the kernel is bound by bytes.  As written it moves more: pos and
+// vel are [N,3] rows, z included, and all 7 output rows are written, the
+// zero ones too.
+//
+// What held the first design back: every receiver of a 64-row
+// block tested every sender of the block's windows (275 at the 1M bench
+// scene, for 20 neighbours) against its ring, one sender a step for the
+// whole block, and the warp ran the pair body in almost every step because
+// some lane passed: the candidate loop, not memory, set the time (flushing
+// L2 cost 4-9 %; 0.288 ms for kernel 1 and 0.368 for kernel 4 on an NVIDIA
+// H100 80GB HBM3 at 700 W, PERF.md).
+//
+// This design is phase 2's (phase2_sweep.cu), through the ring-run walk of
+// window_sweep.cuh: the frame is sorted by key, so the senders in a
+// receiver's ring for one offset are one run of rows.  A block stages the
+// windows of all its offsets together, in chunks (FsiChunk), by cp.async,
+// one array a field: x, y, vx, vy (z, vz in 3-D), and the key -- or, under
+// the row rule, which has no key argument, the linear cell of each sender
+// computed from its staged position (INT_MIN for a pad), which on a frame
+// sorted from these positions is the valid senders' key, and a pad's
+// INT_MIN searched as unsigned sorts last, as its key num_cells does; the
+// type where interaction ratios are on, or for the row rule's pad test.
+// Each receiver finds its run in each window's part of the chunk by two
+// binary searches and walks only that run (a third of the window at the
+// bench scene), in batches of 32: a branch-free pre-test -- the first
+// design's exact mask: the ring (key within one of key_i + off, or the
+// linear cell in fsi_ring with j != i), rij2 > 0 and rij2 <= reach2,
+// inclusive as every phase-1 radius test is -- sets one bit a sender, and
+// the body runs over the set bits in ascending order.  Each receiver sums
+// the same terms as the first design in the same order (offsets in order,
+// rows ascending, a run that two chunks split walked piece by piece), so
+// the float results are the first design's bit for bit.  Measured at the
+// 1M bench scene on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md): kernel 1
+// 0.137 ms warm (0.290 before), kernel 4 0.174 (0.368), the same 86 of 275
+// senders pre-tested a receiver as phase 2.  A body inline over the whole
+// run, each term added under the pre-test's mask by a select, measured
+// 6-9 % slower there, so the body runs over the set bits only.
 #include "window_sweep.cuh"
 
 enum {
@@ -64,14 +85,27 @@ struct Phase1Params {
   FsiRows<T> g;         // row-major rule only
 };
 
+#ifdef FSI_WALK_COUNT
+// the checking build's counts of this kernel (see FsiWalkCount), read and
+// cleared by fsi_phase1_counts
+__device__ unsigned long long fsi_p1_counts[3];
+#endif
+
 template <typename T, bool PLANAR, bool ST, bool ROWS>
 __global__ void phase1_sweep_kernel(const Phase1Params<T> p) {
-  __shared__ T s_pos[FSI_TILE * 3];
-  __shared__ T s_vel[FSI_TILE * 3];
-  __shared__ int s_key[ROWS ? 1 : FSI_TILE];
-  __shared__ int s_prop[FSI_TILE];
-  __shared__ int s_lin[ROWS ? FSI_TILE : 1];
+  constexpr int CAP = FsiChunk<T>::value;
+  constexpr int CAP_Z = PLANAR ? 1 : CAP;
+  // the chunk, one array a field (lanes read different senders)
+  __shared__ T s_x[CAP], s_y[CAP], s_z[CAP_Z];
+  __shared__ T s_vx[CAP], s_vy[CAP], s_vz[CAP_Z];
+  // key rule: the sort key; row rule: the linear cell from the staged
+  // position (INT_MIN for a pad).  Sorted within each window: the run
+  // searches.
+  __shared__ int s_key[CAP];
+  __shared__ int s_prop[(ST || ROWS) ? CAP : 1];
   __shared__ T s_ratio[FSI_TYPE_COUNT * FSI_TYPE_COUNT];
+  // where each offset's window starts in the concatenation of all windows
+  __shared__ int s_cum[FSI_MAX_OFFS + 1];
 
   const int b = blockIdx.x;
   const int i = b * blockDim.x + threadIdx.x;  // n is a multiple of blockDim.x
@@ -80,6 +114,8 @@ __global__ void phase1_sweep_kernel(const Phase1Params<T> p) {
     for (int t = threadIdx.x; t < FSI_TYPE_COUNT * FSI_TYPE_COUNT; t += blockDim.x)
       s_ratio[t] = p.ratio[t];
   }
+  const int* win_start = p.win_start + b * p.n_off;  // this block's windows
+  fsi_window_cum(s_cum, p.win_len + b * p.n_off, p.n_off);
 
   const T xi = p.pos[3 * i], yi = p.pos[3 * i + 1], zi = p.pos[3 * i + 2];
   const T vxi = p.vel[3 * i], vyi = p.vel[3 * i + 1], vzi = p.vel[3 * i + 2];
@@ -101,44 +137,89 @@ __global__ void phase1_sweep_kernel(const Phase1Params<T> p) {
   if (p.count) reach2 = max(reach2, p.c[P1_SUPPORT2]);
   if (ROWS) reach2 = p.c[P1_SUPPORT2];
 
+  __syncthreads();  // s_cum, s_ratio
+  const int total = s_cum[p.n_off];
+
   T acc_da = 0, acc_gx = 0, acc_gy = 0, acc_gz = 0, acc_wp = 0, acc_div = 0,
     acc_cnt = 0;
+#ifdef FSI_WALK_COUNT
+  FsiWalkCount walk;
+#endif
 
-  for (int o = 0; o < p.n_off; ++o) {
-    const int start = p.win_start[b * p.n_off + o];
-    const int len = p.win_len[b * p.n_off + o];
-    const int ring_centre = key_i + p.offs[o];
-    const FsiRing ring = ROWS ? fsi_ring(cxi, cyi, czi, o, p.g) : FsiRing{};
-    for (int t0 = 0; t0 < len; t0 += FSI_TILE) {
-      const int cnt = min(FSI_TILE, len - t0);
-      const int row0 = start + t0;
-      __syncthreads();  // the previous tile is consumed
-      fsi_stage(s_pos, p.pos + 3 * (size_t)row0, 3 * cnt);
-      fsi_stage(s_vel, p.vel + 3 * (size_t)row0, 3 * cnt);
-      if (ROWS) {
-        fsi_stage_lin(s_lin, p.pos, p.prop, row0, cnt, p.g);
-      } else {
-        fsi_stage(s_key, p.key + row0, cnt);
+  // The windows of all offsets, concatenated in offset order, in chunks of
+  // CAP senders: a chunk is staged with cp.async, then each receiver finds
+  // and walks its own ring run within it.
+  for (int v0 = 0; v0 < total; v0 += CAP) {
+    const int v1 = min(total, v0 + CAP);
+    __syncthreads();  // the previous chunk is consumed
+    fsi_chunk_rows(s_cum, win_start, p.n_off, v0, v1, [&](int s, int row) {
+      const size_t r = static_cast<size_t>(row);
+      fsi_async_copy(s_x + s, p.pos + 3 * r);
+      fsi_async_copy(s_y + s, p.pos + 3 * r + 1);
+      fsi_async_copy(s_vx + s, p.vel + 3 * r);
+      fsi_async_copy(s_vy + s, p.vel + 3 * r + 1);
+      if (!PLANAR) {
+        fsi_async_copy(s_z + s, p.pos + 3 * r + 2);
+        fsi_async_copy(s_vz + s, p.vel + 3 * r + 2);
       }
-      if (with_ratio) fsi_stage(s_prop, p.prop + row0, cnt);
-      __syncthreads();
+      if (!ROWS) fsi_async_copy(s_key + s, p.key + r);
+      if (ROWS || with_ratio) fsi_async_copy(s_prop + s, p.prop + r);
+    });
+    fsi_async_wait();
+    if (ROWS)
+      fsi_chunk_lin<T, PLANAR>(s_key, s_x, s_y, s_z, s_prop, p.pos, s_cum,
+                               win_start, p.n_off, v0, v1, p.g);
+    __syncthreads();
 
-      for (int j = 0; j < cnt; ++j) {
-        if (ROWS) {
-          if (!fsi_in_ring(s_lin[j], ring) || row0 + j == i) continue;
-        } else {
-          const int dk = s_key[j] - ring_centre;
-          if (dk < -1 || dk > 1) continue;
+    for (int o = 0; o < p.n_off; ++o) {
+      const int a = max(s_cum[o], v0), e = min(s_cum[o + 1], v1);
+      if (a >= e) continue;
+      // frame row of chunk index 0
+      const int row0 = v0 + win_start[o] - s_cum[o];
+      // This receiver's ring run within the chunk's part of the window,
+      // [j0, j1): the values of its ring are one interval [vlo, vhi] (key
+      // rule: the keys key_i + off +- 1; row rule: the linear cells of
+      // fsi_ring, compared as unsigned so that a pad sorts last), and the
+      // window is sorted by them, so two lower bounds find it.
+      const int ring_centre = key_i + p.offs[o];
+      const FsiRing ring = ROWS ? fsi_ring(cxi, cyi, czi, o, p.g) : FsiRing{};
+      int j0, j1;
+      if (ROWS) {
+        j0 = fsi_lower_bound<unsigned>(s_key, a - v0, e - v0, ring.lo);
+        j1 = fsi_lower_bound<unsigned>(
+            s_key, j0, e - v0, ring.lo + static_cast<int>(ring.span) + 1);
+      } else {
+        j0 = fsi_lower_bound(s_key, a - v0, e - v0, ring_centre - 1);
+        j1 = fsi_lower_bound(s_key, j0, e - v0, ring_centre + 2);
+      }
+      // pre-test, branch-free: the exact mask of a walk of the whole window
+      // (the run only leaves out senders it rejects); every phase-1 radius
+      // test is inclusive, rij2 <= radius^2
+      auto test = [&](int j) {
+        const T dx = s_x[j] - xi;
+        const T dy = s_y[j] - yi;
+        T rij2 = dx * dx + dy * dy;
+        if (!PLANAR) {
+          const T dz = s_z[j] - zi;
+          rij2 += dz * dz;
         }
-        const T dx = s_pos[3 * j] - xi;
-        const T dy = s_pos[3 * j + 1] - yi;
+        bool ok = (rij2 > T(0)) & !(rij2 > reach2);
+        if (ROWS)
+          ok = ok & fsi_in_ring(s_key[j], ring) & (row0 + j != i);
+        else  // the key within one of the ring's centre
+          ok = ok & (static_cast<unsigned>(s_key[j] - ring_centre + 1) <= 2u);
+        return ok;
+      };
+      // the sums of one sender that passed the pre-test
+      auto body = [&](int j) {
+        const T dx = s_x[j] - xi;
+        const T dy = s_y[j] - yi;
         T rij2 = dx * dx + dy * dy;
         T dz = 0;
         if (!PLANAR) {
-          dz = s_pos[3 * j + 2] - zi;
+          dz = s_z[j] - zi;
           rij2 += dz * dz;
         }
-        if (!(rij2 > T(0)) || rij2 > reach2) continue;
         const T inv_r = fsi_rsqrt(rij2);
         const T rij = rij2 * inv_r;
 
@@ -179,15 +260,24 @@ __global__ void phase1_sweep_kernel(const Phase1Params<T> p) {
         // wp sum + divergence; the constant norms are applied after the loop
         if (m_p) {
           acc_wp += omq_p * omq_p;
-          T udotx = (s_vel[3 * j] - vxi) * dx + (s_vel[3 * j + 1] - vyi) * dy;
-          if (!PLANAR) udotx += (s_vel[3 * j + 2] - vzi) * dz;
+          T udotx = (s_vx[j] - vxi) * dx + (s_vy[j] - vyi) * dy;
+          if (!PLANAR) udotx += (s_vz[j] - vzi) * dz;
           acc_div += (udotx * inv_r) * omq_p;
         }
         if (p.count && rij2 <= p.c[P1_SUPPORT2]) acc_cnt += T(1);
-      }
+      };
+#ifdef FSI_WALK_COUNT
+      walk.run(j0, j1);
+      walk.passed += fsi_walk_run(j0, j1, test, body);
+#else
+      fsi_walk_run(j0, j1, test, body);
+#endif
     }
   }
 
+#ifdef FSI_WALK_COUNT
+  walk.add_to(fsi_p1_counts);
+#endif
   const size_t n = p.n;
   p.out[i] = acc_da;
   p.out[n + i] = acc_gx;
@@ -253,6 +343,9 @@ static int launch_phase1(const void* pos, const void* vel, const void* key,
 }
 
 static bool phase1_args_ok(int n, int block, int n_off) {
+#ifdef FSI_WALK_COUNT
+  if (block % 32 != 0) return false;  // the counts reduce over whole warps
+#endif
   return block > 0 && block <= 1024 && n % block == 0 && n_off > 0 &&
          n_off <= FSI_MAX_OFFS;
 }
@@ -312,3 +405,44 @@ extern "C" int fsi_phase1_rows(int is_double, const void* pos, const void* vel,
 }
 
 extern "C" int fsi_phase1_nconst() { return P1_NCONST; }
+
+// Resident blocks per SM of one phase-1 instance at `block` threads (the
+// occupancy the launch reaches; registers and shared memory decide it), or
+// -1 where the query fails.
+template <typename T, bool ROWS>
+static int phase1_occupancy(int planar, int surface_tension, int block) {
+  int blocks = -1;
+  cudaError_t err;
+  if (planar) {
+    err = surface_tension
+              ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                    &blocks, phase1_sweep_kernel<T, true, true, ROWS>, block, 0)
+              : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                    &blocks, phase1_sweep_kernel<T, true, false, ROWS>, block, 0);
+  } else {
+    err = surface_tension
+              ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                    &blocks, phase1_sweep_kernel<T, false, true, ROWS>, block, 0)
+              : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                    &blocks, phase1_sweep_kernel<T, false, false, ROWS>, block, 0);
+  }
+  return err == cudaSuccess ? blocks : -1;
+}
+
+extern "C" int fsi_phase1_occupancy(int is_double, int rows, int planar,
+                                    int surface_tension, int block) {
+  if (is_double)
+    return rows ? phase1_occupancy<double, true>(planar, surface_tension, block)
+                : phase1_occupancy<double, false>(planar, surface_tension, block);
+  return rows ? phase1_occupancy<float, true>(planar, surface_tension, block)
+              : phase1_occupancy<float, false>(planar, surface_tension, block);
+}
+
+#ifdef FSI_WALK_COUNT
+// The checking build's counts of kernels 1 and 4 (see FsiWalkCount) of the
+// launches since the last call, into out[3]; then clears them.  Returns a
+// cudaError_t (0 = success).
+extern "C" int fsi_phase1_counts(unsigned long long* out) {
+  return fsi_read_counts(fsi_p1_counts, out);
+}
+#endif

@@ -38,11 +38,11 @@
 // key_i + off - 1 .. key_i + off + 1; row rule, the linear cells of fsi_ring,
 // which on a frame sorted from these positions are the valid senders' keys
 // (a pad's key, num_cells, lies in no ring).  A block stages the windows of
-// all its offsets together, in chunks of P2Chunk senders, by cp.async, one
+// all its offsets together, in chunks of FsiChunk senders, by cp.async, one
 // array a field, the key included; each receiver then finds its run within
 // each window's part of the chunk by two binary searches on the staged keys
 // and walks only that run (a third of the window at the bench scene; the
-// checking build below counts it, PERF.md), in batches of 32: a
+// checking build -DFSI_WALK_COUNT counts it, PERF.md), in batches of 32: a
 // branch-free pre-test (the whole-window walk's exact mask: ring, rij2 > 0,
 // the radius, and for the row rule j != i and the support) sets one bit a
 // sender, and the force body runs over the set bits in ascending order.  A
@@ -52,6 +52,8 @@
 // the same terms as the whole-window walk in the same order.  Windows of
 // any length give the masked walk's result exactly (a run is the ring
 // within the window, and a run that two chunks split is found in each).
+// The staging, the run search and the batched walk are the ring-run walk
+// of window_sweep.cuh, which phase 1 shares.
 // One block a receiver block of 64: measured on the card,
 // more receiver blocks a CUDA block, smaller chunks for more resident
 // blocks, and searching the key in device memory were each slower (PERF.md).
@@ -91,31 +93,15 @@ struct Phase2Params {
   FsiRows<T> g;         // row-major rule only
 };
 
-// Senders one chunk stages in shared memory: a block's windows of all
-// offsets together (about 275 rows in 2-D at the bench scene's density) fit
-// in one float chunk; the double instances serve the checks and use smaller
-// chunks, which also exercises the chunking.
-template <typename T> struct P2Chunk;
-template <> struct P2Chunk<float> { static constexpr int value = 384; };
-template <> struct P2Chunk<double> { static constexpr int value = 128; };
-
-// Senders a receiver pre-tests before it runs the force body over the ones
-// that passed, in ascending order: one bit each of a 32-bit mask.
-#define P2_BATCH 32
-
-// A checking build (-DFSI_PHASE2_COUNT; chip_smoke.py makes one beside the
-// library the solver loads) counts what the kernel walks, summed over its
-// launches: [0] the senders the receivers pre-test, [1] the pre-test steps
-// of the warps (for each run, the longest of the 32 lanes'), [2] the
-// senders that pass the pre-test.  fsi_phase2_counts reads and clears them.
-// The forces are the same as without the counts.
-#ifdef FSI_PHASE2_COUNT
+#ifdef FSI_WALK_COUNT
+// the checking build's counts of this kernel (see FsiWalkCount), read and
+// cleared by fsi_phase2_counts
 __device__ unsigned long long fsi_p2_counts[3];
 #endif
 
 template <typename T, bool PLANAR, bool ST, bool ROWS>
 __global__ void phase2_sweep_kernel(const Phase2Params<T> p) {
-  constexpr int CAP = P2Chunk<T>::value;
+  constexpr int CAP = FsiChunk<T>::value;
   constexpr int CAP_Z = PLANAR ? 1 : CAP;
   constexpr int CAP_ST = ST ? CAP : 1;
   constexpr int CAP_ST_Z = (ST && !PLANAR) ? CAP : 1;
@@ -139,14 +125,8 @@ __global__ void phase2_sweep_kernel(const Phase2Params<T> p) {
     for (int t = tid; t < FSI_TYPE_COUNT * FSI_TYPE_COUNT; t += blockDim.x)
       s_ratio[t] = p.ratio[t];
   }
-  if (tid == 0) {
-    int acc = 0;
-    for (int o = 0; o < p.n_off; ++o) {
-      s_cum[o] = acc;
-      acc += p.win_len[b * p.n_off + o];
-    }
-    s_cum[p.n_off] = acc;
-  }
+  const int* win_start = p.win_start + b * p.n_off;  // this block's windows
+  fsi_window_cum(s_cum, p.win_len + b * p.n_off, p.n_off);
 
   const T xi = p.pos[3 * i], yi = p.pos[3 * i + 1], zi = p.pos[3 * i + 2];
   const T vxi = p.vel[3 * i], vyi = p.vel[3 * i + 1], vzi = p.vel[3 * i + 2];
@@ -183,8 +163,8 @@ __global__ void phase2_sweep_kernel(const Phase2Params<T> p) {
   const int total = s_cum[p.n_off];
 
   T fx = 0, fy = 0, fz = 0;
-#ifdef FSI_PHASE2_COUNT
-  unsigned n_tested = 0, n_steps = 0, n_passed = 0;
+#ifdef FSI_WALK_COUNT
+  FsiWalkCount walk;
 #endif
 
   // The windows of all offsets, concatenated in offset order, in chunks of
@@ -193,63 +173,38 @@ __global__ void phase2_sweep_kernel(const Phase2Params<T> p) {
   for (int v0 = 0; v0 < total; v0 += CAP) {
     const int v1 = min(total, v0 + CAP);
     __syncthreads();  // the previous chunk is consumed
-    for (int o = 0; o < p.n_off; ++o) {
-      const int a = max(s_cum[o], v0), e = min(s_cum[o + 1], v1);
-      // frame row = concatenation index + shift
-      const int shift = p.win_start[b * p.n_off + o] - s_cum[o];
-      for (int v = a + tid; v < e; v += blockDim.x) {
-        const int s = v - v0;
-        const size_t r = static_cast<size_t>(v + shift);
-        fsi_async_copy(s_x + s, p.pos + 3 * r);
-        fsi_async_copy(s_y + s, p.pos + 3 * r + 1);
-        fsi_async_copy(s_vx + s, p.vel + 3 * r);
-        fsi_async_copy(s_vy + s, p.vel + 3 * r + 1);
-        if (!PLANAR) {
-          fsi_async_copy(s_z + s, p.pos + 3 * r + 2);
-          fsi_async_copy(s_vz + s, p.vel + 3 * r + 2);
-        }
-        fsi_async_copy(s_pp + s, p.pp + r);
-        fsi_async_copy(s_visc + s, p.visc + r);
-        fsi_async_copy(s_prop + s, p.prop + r);
-        fsi_async_copy(s_key + s, p.key + r);
-        if (ST) {
-          fsi_async_copy(s_pa + s, p.pa + r);
-          fsi_async_copy(s_gx + s, p.gc + 3 * r);
-          fsi_async_copy(s_gy + s, p.gc + 3 * r + 1);
-          if (!PLANAR) fsi_async_copy(s_gz + s, p.gc + 3 * r + 2);
-        }
+    fsi_chunk_rows(s_cum, win_start, p.n_off, v0, v1, [&](int s, int row) {
+      const size_t r = static_cast<size_t>(row);
+      fsi_async_copy(s_x + s, p.pos + 3 * r);
+      fsi_async_copy(s_y + s, p.pos + 3 * r + 1);
+      fsi_async_copy(s_vx + s, p.vel + 3 * r);
+      fsi_async_copy(s_vy + s, p.vel + 3 * r + 1);
+      if (!PLANAR) {
+        fsi_async_copy(s_z + s, p.pos + 3 * r + 2);
+        fsi_async_copy(s_vz + s, p.vel + 3 * r + 2);
       }
-    }
+      fsi_async_copy(s_pp + s, p.pp + r);
+      fsi_async_copy(s_visc + s, p.visc + r);
+      fsi_async_copy(s_prop + s, p.prop + r);
+      fsi_async_copy(s_key + s, p.key + r);
+      if (ST) {
+        fsi_async_copy(s_pa + s, p.pa + r);
+        fsi_async_copy(s_gx + s, p.gc + 3 * r);
+        fsi_async_copy(s_gy + s, p.gc + 3 * r + 1);
+        if (!PLANAR) fsi_async_copy(s_gz + s, p.gc + 3 * r + 2);
+      }
+    });
     fsi_async_wait();
-    if (ROWS) {
-      // the linear cell of each sender this thread staged, from its own
-      // copies (the sort key's true divide; INT_MIN for a pad, in no ring)
-      for (int o = 0; o < p.n_off; ++o) {
-        const int a = max(s_cum[o], v0), e = min(s_cum[o + 1], v1);
-        const int shift = p.win_start[b * p.n_off + o] - s_cum[o];
-        for (int v = a + tid; v < e; v += blockDim.x) {
-          const int s = v - v0;
-          const int cx = fsi_cell(s_x[s], p.g.dmin[0], p.g.cw[0], p.g.ncell[0]);
-          const int cy = fsi_cell(s_y[s], p.g.dmin[1], p.g.cw[1], p.g.ncell[1]);
-          int cz = 0;
-          if (p.g.three_d) {
-            const T z = PLANAR ? p.pos[3 * static_cast<size_t>(v + shift) + 2]
-                               : s_z[s];
-            cz = fsi_cell(z, p.g.dmin[2], p.g.cw[2], p.g.ncell[2]);
-          }
-          s_lin[s] = s_prop[s] >= 0
-                          ? cx + p.g.ncell[0] * (cy + p.g.ncell[1] * cz)
-                          : INT_MIN;
-        }
-      }
-    }
+    if (ROWS)
+      fsi_chunk_lin<T, PLANAR>(s_lin, s_x, s_y, s_z, s_prop, p.pos, s_cum,
+                               win_start, p.n_off, v0, v1, p.g);
     __syncthreads();
 
     for (int o = 0; o < p.n_off; ++o) {
       const int a = max(s_cum[o], v0), e = min(s_cum[o + 1], v1);
       if (a >= e) continue;
       // frame row of chunk index 0
-      const int row0 = v0 + p.win_start[b * p.n_off + o] - s_cum[o];
+      const int row0 = v0 + win_start[o] - s_cum[o];
       // This receiver's ring run within the chunk's part of the window,
       // [j0, j1): the keys of its ring are one interval [vlo, vhi] (key
       // rule: key_i + off +- 1; row rule: the linear cells of fsi_ring,
@@ -263,164 +218,148 @@ __global__ void phase2_sweep_kernel(const Phase2Params<T> p) {
                            : ring_centre + 1;
       const int j0 = fsi_lower_bound(s_key, a - v0, e - v0, vlo);
       const int j1 = fsi_lower_bound(s_key, j0, e - v0, vhi + 1);
-#ifdef FSI_PHASE2_COUNT
-      n_tested += j1 - j0;
-      n_steps += __reduce_max_sync(0xffffffffu, static_cast<unsigned>(j1 - j0));
-#endif
-      for (int base = j0; base < j1; base += P2_BATCH) {
-        // pre-test, branch-free: the exact mask of a walk of the whole
-        // window (the run only leaves out senders it rejects); every family
-        // mask is the strict radius^2 - rij2 > 0
-        const int cnt = min(P2_BATCH, j1 - base);
-        unsigned live = 0u;
-#pragma unroll
-        for (int t = 0; t < P2_BATCH; ++t) {
-          if (t >= cnt) break;
-          const int j = base + t;
-          const T dx = s_x[j] - xi;
-          const T dy = s_y[j] - yi;
-          T rij2 = dx * dx + dy * dy;
-          if (!PLANAR) {
-            const T dz = s_z[j] - zi;
-            rij2 += dz * dz;
-          }
-          bool ok = (rij2 > T(0)) & (rij2 < reach2);
-          if (ROWS)
-            ok = ok & fsi_in_ring(s_lin[j], ring) & (row0 + j != i) &
-                 !(rij2 > p.support2);
-          else  // the key within one of the ring's centre
-            ok = ok & (static_cast<unsigned>(s_key[j] - ring_centre + 1) <= 2u);
-          live |= static_cast<unsigned>(ok) << t;
+      // pre-test, branch-free: the exact mask of a walk of the whole window
+      // (the run only leaves out senders it rejects); every family mask is
+      // the strict radius^2 - rij2 > 0
+      auto test = [&](int j) {
+        const T dx = s_x[j] - xi;
+        const T dy = s_y[j] - yi;
+        T rij2 = dx * dx + dy * dy;
+        if (!PLANAR) {
+          const T dz = s_z[j] - zi;
+          rij2 += dz * dz;
         }
-#ifdef FSI_PHASE2_COUNT
-        n_passed += __popc(live);
-#endif
-        // the force body over the senders that passed, in ascending order
-        while (live) {
-          const int j = base + __ffs(live) - 1;
-          live &= live - 1u;
-          const T dx = s_x[j] - xi;
-          const T dy = s_y[j] - yi;
-          T rij2 = dx * dx + dy * dy;
-          T dz = 0;
-          if (!PLANAR) {
-            dz = s_z[j] - zi;
-            rij2 += dz * dz;
+        bool ok = (rij2 > T(0)) & (rij2 < reach2);
+        if (ROWS)
+          ok = ok & fsi_in_ring(s_lin[j], ring) & (row0 + j != i) &
+               !(rij2 > p.support2);
+        else  // the key within one of the ring's centre
+          ok = ok & (static_cast<unsigned>(s_key[j] - ring_centre + 1) <= 2u);
+        return ok;
+      };
+      // the force body of one sender that passed
+      auto body = [&](int j) {
+        const T dx = s_x[j] - xi;
+        const T dy = s_y[j] - yi;
+        T rij2 = dx * dx + dy * dy;
+        T dz = 0;
+        if (!PLANAR) {
+          dz = s_z[j] - zi;
+          rij2 += dz * dz;
+        }
+        const T inv_r = fsi_rsqrt(rij2);
+        const T rij = rij2 * inv_r;
+        const T ex = dx * inv_r, ey = dy * inv_r;
+        const T ez = PLANAR ? T(0) : dz * inv_r;
+
+        const int prop_j = s_prop[j];
+        const bool ss = fsi_is_structure(prop_j);
+        T ratio_ij = 1, ratio_ji = 1;
+        if (with_ratio) {
+          ratio_ij = fsi_ratio(s_ratio, type_i, prop_j);
+          ratio_ji = (prop_j >= 0 && prop_j < FSI_TYPE_COUNT)
+                         ? s_ratio[prop_j * FSI_TYPE_COUNT + type_i]
+                         : T(0);
+        }
+
+        // pressureP + FSI interface load: fluid/wall receivers take all
+        // senders, structure receivers only non-structure senders
+        const bool m_p = p.c[P2_RADIUS_P2] - rij2 > T(0);
+        const T q_p = rij * p.c[P2_INV_RADIUS_P];
+        const T omq_p = T(1) - q_p;
+        T radial = 0;
+        if (m_p && !(rs && ss)) {
+          const T dwp = p.c[P2_DWP_COEF] * omq_p;
+          radial = (pp_i + s_pp[j]) * dwp * volume;
+        }
+
+        // pressureA; exactly zero without surface tension
+        if (ST) {
+          bool m_a = m_p;
+          T q_a = q_p, omq_a = omq_p;
+          if (!p.uniform_radii) {
+            m_a = p.c[P2_RADIUS_A2] - rij2 > T(0);
+            q_a = rij * p.c[P2_INV_RADIUS_A];
+            omq_a = T(1) - q_a;
           }
-          const T inv_r = fsi_rsqrt(rij2);
-          const T rij = rij2 * inv_r;
-          const T ex = dx * inv_r, ey = dy * inv_r;
-          const T ez = PLANAR ? T(0) : dz * inv_r;
-
-          const int prop_j = s_prop[j];
-          const bool ss = fsi_is_structure(prop_j);
-          T ratio_ij = 1, ratio_ji = 1;
-          if (with_ratio) {
-            ratio_ij = fsi_ratio(s_ratio, type_i, prop_j);
-            ratio_ji = (prop_j >= 0 && prop_j < FSI_TYPE_COUNT)
-                           ? s_ratio[prop_j * FSI_TYPE_COUNT + type_i]
-                           : T(0);
-          }
-
-          // pressureP + FSI interface load: fluid/wall receivers take all
-          // senders, structure receivers only non-structure senders
-          const bool m_p = p.c[P2_RADIUS_P2] - rij2 > T(0);
-          const T q_p = rij * p.c[P2_INV_RADIUS_P];
-          const T omq_p = T(1) - q_p;
-          T radial = 0;
-          if (m_p && !(rs && ss)) {
-            const T dwp = p.c[P2_DWP_COEF] * omq_p;
-            radial = (pp_i + s_pp[j]) * dwp * volume;
-          }
-
-          // pressureA; exactly zero without surface tension
-          if (ST) {
-            bool m_a = m_p;
-            T q_a = q_p, omq_a = omq_p;
-            if (!p.uniform_radii) {
-              m_a = p.c[P2_RADIUS_A2] - rij2 > T(0);
-              q_a = rij * p.c[P2_INV_RADIUS_A];
-              omq_a = T(1) - q_a;
-            }
-            if (m_a && !rs) {
-              const T dwa = p.c[P2_NORM_A] * omq_a * (T(1) - T(3) * q_a) /
-                            p.c[P2_RADIUS_A];
-              radial += (pa_i * ratio_ij + s_pa[j] * ratio_ji) * dwa * volume;
-            }
-          }
-
-          // viscosity: field-major, a zero viscosity makes its inverse
-          // infinite and mu_h exactly 0; row-major, mu_h is 0 unless
-          // mu_i + mu_j > 0
-          {
-            bool m_v = m_p;
-            T omq_v = omq_p;
-            if (!p.uniform_radii) {
-              m_v = p.c[P2_RADIUS_V2] - rij2 > T(0);
-              omq_v = T(1) - rij * p.c[P2_INV_RADIUS_V];
-            }
-            if (m_v && !rs) {
-              T udote = (s_vx[j] - vxi) * ex + (s_vy[j] - vyi) * ey;
-              if (!PLANAR) udote += (s_vz[j] - vzi) * ez;
-              T mu_h;
-              if (ROWS) {
-                const T den = visc_i + s_visc[j];
-                mu_h = den > T(0) ? T(2) * visc_i * s_visc[j] / den : T(0);
-              } else {
-                mu_h = T(2) / (visc_i + s_visc[j]);
-              }
-              const T dwv = p.c[P2_DWV_COEF] * omq_v;
-              radial += p.c[P2_C_V] * mu_h * udote * (-dwv) * inv_r * volume;
-            }
-          }
-
-          fx += radial * ex;
-          fy += radial * ey;
-          if (!PLANAR) fz += radial * ez;
-
-          // diffuse interface; zero without surface tension
-          if (ST) {
-            bool m_g = m_p;
-            T omq_g = omq_p;
-            if (!p.uniform_radii) {
-              m_g = p.c[P2_RADIUS_G2] - rij2 > T(0);
-              omq_g = T(1) - rij * p.c[P2_INV_RADIUS_G];
-            }
-            if (m_g && !rs) {
-              const T wgv = p.c[P2_NORM_G] * (omq_g * omq_g);
-              const T dwg = p.c[P2_DWG_COEF] * omq_g;
-              const T wij = ratio_ij * wgv, wji = ratio_ji * wgv;
-              const T dwij = ratio_ij * dwg, dwji = ratio_ji * dwg;
-              const T gcx_j = s_gx[j], gcy_j = s_gy[j];
-              const T t1x = a_i * (gcx_j * wji - gcx_i * wij) * scale_di;
-              const T t1y = a_i * (gcy_j * wji - gcy_i * wij) * scale_di;
-              T gr_sum = (gcx_j * dwji - gcx_i * dwij) * dx +
-                         (gcy_j * dwji - gcy_i * dwij) * dy;
-              T t1z = 0;
-              if (!PLANAR) {
-                const T gcz_j = s_gz[j];
-                t1z = a_i * (gcz_j * wji - gcz_i * wij) * scale_di;
-                gr_sum += (gcz_j * dwji - gcz_i * dwij) * dz;
-              }
-              const T gr = a_i * gr_sum;
-              fx -= t1x + gr * ex * scale_di;
-              fy -= t1y + gr * ey * scale_di;
-              if (!PLANAR) fz -= t1z + gr * ez * scale_di;
-            }
+          if (m_a && !rs) {
+            const T dwa = p.c[P2_NORM_A] * omq_a * (T(1) - T(3) * q_a) /
+                          p.c[P2_RADIUS_A];
+            radial += (pa_i * ratio_ij + s_pa[j] * ratio_ji) * dwa * volume;
           }
         }
-      }
+
+        // viscosity: field-major, a zero viscosity makes its inverse
+        // infinite and mu_h exactly 0; row-major, mu_h is 0 unless
+        // mu_i + mu_j > 0
+        {
+          bool m_v = m_p;
+          T omq_v = omq_p;
+          if (!p.uniform_radii) {
+            m_v = p.c[P2_RADIUS_V2] - rij2 > T(0);
+            omq_v = T(1) - rij * p.c[P2_INV_RADIUS_V];
+          }
+          if (m_v && !rs) {
+            T udote = (s_vx[j] - vxi) * ex + (s_vy[j] - vyi) * ey;
+            if (!PLANAR) udote += (s_vz[j] - vzi) * ez;
+            T mu_h;
+            if (ROWS) {
+              const T den = visc_i + s_visc[j];
+              mu_h = den > T(0) ? T(2) * visc_i * s_visc[j] / den : T(0);
+            } else {
+              mu_h = T(2) / (visc_i + s_visc[j]);
+            }
+            const T dwv = p.c[P2_DWV_COEF] * omq_v;
+            radial += p.c[P2_C_V] * mu_h * udote * (-dwv) * inv_r * volume;
+          }
+        }
+
+        fx += radial * ex;
+        fy += radial * ey;
+        if (!PLANAR) fz += radial * ez;
+
+        // diffuse interface; zero without surface tension
+        if (ST) {
+          bool m_g = m_p;
+          T omq_g = omq_p;
+          if (!p.uniform_radii) {
+            m_g = p.c[P2_RADIUS_G2] - rij2 > T(0);
+            omq_g = T(1) - rij * p.c[P2_INV_RADIUS_G];
+          }
+          if (m_g && !rs) {
+            const T wgv = p.c[P2_NORM_G] * (omq_g * omq_g);
+            const T dwg = p.c[P2_DWG_COEF] * omq_g;
+            const T wij = ratio_ij * wgv, wji = ratio_ji * wgv;
+            const T dwij = ratio_ij * dwg, dwji = ratio_ji * dwg;
+            const T gcx_j = s_gx[j], gcy_j = s_gy[j];
+            const T t1x = a_i * (gcx_j * wji - gcx_i * wij) * scale_di;
+            const T t1y = a_i * (gcy_j * wji - gcy_i * wij) * scale_di;
+            T gr_sum = (gcx_j * dwji - gcx_i * dwij) * dx +
+                       (gcy_j * dwji - gcy_i * dwij) * dy;
+            T t1z = 0;
+            if (!PLANAR) {
+              const T gcz_j = s_gz[j];
+              t1z = a_i * (gcz_j * wji - gcz_i * wij) * scale_di;
+              gr_sum += (gcz_j * dwji - gcz_i * dwij) * dz;
+            }
+            const T gr = a_i * gr_sum;
+            fx -= t1x + gr * ex * scale_di;
+            fy -= t1y + gr * ey * scale_di;
+            if (!PLANAR) fz -= t1z + gr * ez * scale_di;
+          }
+        }
+      };
+#ifdef FSI_WALK_COUNT
+      walk.run(j0, j1);
+      walk.passed += fsi_walk_run(j0, j1, test, body);
+#else
+      fsi_walk_run(j0, j1, test, body);
+#endif
     }
   }
 
-#ifdef FSI_PHASE2_COUNT
-  n_tested = __reduce_add_sync(0xffffffffu, n_tested);
-  n_passed = __reduce_add_sync(0xffffffffu, n_passed);
-  if ((tid & 31) == 0) {
-    atomicAdd(&fsi_p2_counts[0], static_cast<unsigned long long>(n_tested));
-    atomicAdd(&fsi_p2_counts[1], static_cast<unsigned long long>(n_steps));
-    atomicAdd(&fsi_p2_counts[2], static_cast<unsigned long long>(n_passed));
-  }
+#ifdef FSI_WALK_COUNT
+  walk.add_to(fsi_p2_counts);
 #endif
   const size_t n = p.n;
   p.out[i] = fx;
@@ -492,7 +431,7 @@ static int launch_phase2(const void* pos, const void* vel, const void* key,
 
 static bool phase2_args_ok(int n, int block, int n_off, int surface_tension,
                            const void* pa, const void* gc) {
-#ifdef FSI_PHASE2_COUNT
+#ifdef FSI_WALK_COUNT
   if (block % 32 != 0) return false;  // the counts reduce over whole warps
 #endif
   return block > 0 && block <= 1024 && n % block == 0 && n_off > 0 &&
@@ -599,16 +538,11 @@ extern "C" int fsi_phase2_occupancy(int is_double, int rows, int planar,
               : phase2_occupancy<float, false>(planar, surface_tension, block);
 }
 
-#ifdef FSI_PHASE2_COUNT
-// The checking build's counts (see fsi_p2_counts) of the launches since the
-// last call, into out[3]; then clears them.  Returns a cudaError_t (0 =
-// success).
+#ifdef FSI_WALK_COUNT
+// The checking build's counts of kernels 2 and 5 (see FsiWalkCount) of the
+// launches since the last call, into out[3]; then clears them.  Returns a
+// cudaError_t (0 = success).
 extern "C" int fsi_phase2_counts(unsigned long long* out) {
-  cudaError_t err = cudaMemcpyFromSymbol(out, fsi_p2_counts,
-                                         sizeof(fsi_p2_counts));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const unsigned long long zero[3] = {0, 0, 0};
-  return static_cast<int>(
-      cudaMemcpyToSymbol(fsi_p2_counts, zero, sizeof(zero)));
+  return fsi_read_counts(fsi_p2_counts, out);
 }
 #endif

@@ -20,14 +20,16 @@
 // Every family then applies its own radius test.
 //
 // Design: one thread block per receiver block, one thread per receiver with
-// its accumulators in registers.  Phases 1 and 3 walk each window exactly
-// from start to start + len in tiles of FSI_TILE senders staged through
-// shared memory (coalesced loads; in the pair loop all threads read the same
-// sender, a shared-memory broadcast).  Phase 2 walks only each receiver's
-// ring run: the frame is sorted by key, so the senders in a receiver's ring
-// for one offset are one contiguous run of rows of the window, found by
-// binary search on the window's keys staged in shared memory
-// (fsi_lower_bound); see phase2_sweep.cu.
+// its accumulators in registers.  Phases 1 and 2 walk only each receiver's
+// ring runs: the frame is sorted by key, so the senders in a receiver's ring
+// for one offset are one contiguous run of rows of the window.  A block
+// stages the windows of all its offsets together, in chunks, and each
+// receiver finds its run in each window's part of a chunk by binary search
+// on the staged keys (the ring-run walk below; see phase2_sweep.cu).  The
+// virial (phase 3) walks each window exactly from start to start + len in
+// tiles of FSI_TILE senders staged through shared memory (coalesced loads;
+// in the pair loop all threads read the same sender, a shared-memory
+// broadcast).
 // Keys are compared as int32.  No atomics in the sums: each receiver sums
 // its own senders in a fixed order, so results are deterministic.  Compile
 // WITHOUT -use_fast_math: the viscosity term relies on 2/(inf + x) == 0 and
@@ -66,7 +68,8 @@ __device__ __forceinline__ T fsi_ratio(const T* table, int a, int b) {
   return (b >= 0 && b < FSI_TYPE_COUNT) ? table[a * FSI_TYPE_COUNT + b] : T(0);
 }
 
-// Cooperative copy of `count` contiguous elements into shared memory.
+// Cooperative copy of `count` contiguous elements into shared memory (the
+// virial's tiles).
 template <typename T>
 __device__ __forceinline__ void fsi_stage(T* dst, const T* src, int count) {
   for (int i = threadIdx.x; i < count; i += blockDim.x) dst[i] = src[i];
@@ -111,9 +114,9 @@ static void fsi_rows_fill(FsiRows<T>* g, int n_off, const int* offs_yz,
 }
 
 // Stage the linear cell index (x fastest) of the senders of rows
-// [row0, row0 + cnt): the cell coordinates are computed once per sender
-// when its tile is staged, not once per pair; a pad row (prop < 0) gets
-// INT_MIN, which lies in no ring.
+// [row0, row0 + cnt) (the virial's tiles): the cell coordinates are
+// computed once per sender when its tile is staged, not once per pair; a
+// pad row (prop < 0) gets INT_MIN, which lies in no ring.
 template <typename T>
 __device__ __forceinline__ void fsi_stage_lin(int* s_lin, const T* pos,
                                               const int* prop, int row0,
@@ -158,22 +161,161 @@ __device__ __forceinline__ bool fsi_in_ring(int lin, FsiRing r) {
 }
 
 // ---------------------------------------------------------------------------
-// Used by phase 2 only for now.
+// The ring-run walk of phases 1 and 2 (phase1_sweep.cu, phase2_sweep.cu).
+//
+// A block concatenates the windows of its offsets in offset order and
+// stages them in chunks of FsiChunk senders, one shared array a field
+// (fsi_window_cum, fsi_chunk_rows, fsi_async_copy); each receiver finds its
+// ring run in each window's part of a chunk by two lower bounds on the
+// staged keys (fsi_lower_bound) and walks it in batches of FSI_BATCH
+// (fsi_walk_run): a branch-free pre-test sets one bit a sender, and the
+// pair body runs over the set bits in ascending order.  A run that two
+// chunks split is found in each, in order, so every receiver sums the same
+// terms in the same order as a walk of its whole window would.
+
+// Senders one chunk stages: a block's windows of all offsets together
+// (about 275 rows in 2-D at the bench scene's density) fit in one float
+// chunk; the double instances serve the checks and use smaller chunks,
+// which also exercises the chunking.
+template <typename T> struct FsiChunk;
+template <> struct FsiChunk<float> { static constexpr int value = 384; };
+template <> struct FsiChunk<double> { static constexpr int value = 128; };
+
+// Senders a receiver pre-tests before it runs the pair body over the ones
+// that passed: one bit each of a 32-bit mask.
+#define FSI_BATCH 32
+
+// s_cum[o]: where offset o's window starts in the concatenation of the
+// block's windows (win_len: the block's row of the table); s_cum[n_off]:
+// their total.  Thread 0 writes it; the caller synchronises.
+__device__ __forceinline__ void fsi_window_cum(int* s_cum, const int* win_len,
+                                               int n_off) {
+  if (threadIdx.x == 0) {
+    int acc = 0;
+    for (int o = 0; o < n_off; ++o) {
+      s_cum[o] = acc;
+      acc += win_len[o];
+    }
+    s_cum[n_off] = acc;
+  }
+}
+
+// f(s, r) for each sender of the chunk [v0, v1) of the concatenation that
+// this thread stages: s its index in the chunk, r its frame row (win_start:
+// the block's row of the table).
+template <typename F>
+__device__ __forceinline__ void fsi_chunk_rows(const int* s_cum,
+                                               const int* win_start, int n_off,
+                                               int v0, int v1, F f) {
+  for (int o = 0; o < n_off; ++o) {
+    const int a = max(s_cum[o], v0), e = min(s_cum[o + 1], v1);
+    // frame row = concatenation index + shift
+    const int shift = win_start[o] - s_cum[o];
+    for (int v = a + threadIdx.x; v < e; v += blockDim.x) f(v - v0, v + shift);
+  }
+}
+
+// The row rule's linear cell of each sender this thread staged, from its own
+// staged copies (the sort key's true divide; INT_MIN for a pad, in no
+// ring); z from device memory where the planar instance stages none.  Call
+// after fsi_async_wait(), before the __syncthreads() that publishes it.
+template <typename T, bool PLANAR>
+__device__ __forceinline__ void fsi_chunk_lin(
+    int* s_lin, const T* s_x, const T* s_y, const T* s_z, const int* s_prop,
+    const T* pos, const int* s_cum, const int* win_start, int n_off, int v0,
+    int v1, const FsiRows<T>& g) {
+  fsi_chunk_rows(s_cum, win_start, n_off, v0, v1, [&](int s, int r) {
+    const int cx = fsi_cell(s_x[s], g.dmin[0], g.cw[0], g.ncell[0]);
+    const int cy = fsi_cell(s_y[s], g.dmin[1], g.cw[1], g.ncell[1]);
+    int cz = 0;
+    if (g.three_d) {
+      const T z = PLANAR ? pos[3 * static_cast<size_t>(r) + 2] : s_z[s];
+      cz = fsi_cell(z, g.dmin[2], g.cw[2], g.ncell[2]);
+    }
+    s_lin[s] = s_prop[s] >= 0 ? cx + g.ncell[0] * (cy + g.ncell[1] * cz)
+                              : INT_MIN;
+  });
+}
 
 // First index r in [lo, hi) with key[r] >= v, or hi: a lower bound on keys
-// sorted over [lo, hi) (phase 2 searches a window's keys staged in shared
-// memory).
+// sorted over [lo, hi), compared as U: int for sort keys; unsigned for the
+// row rule's staged linear cells, where a pad's INT_MIN then sorts after
+// every cell, as its key num_cells does.
+template <typename U = int>
 __device__ __forceinline__ int fsi_lower_bound(const int* key, int lo, int hi,
                                                int v) {
   while (lo < hi) {
     const int mid = lo + ((hi - lo) >> 1);
-    if (key[mid] < v)
+    if (static_cast<U>(key[mid]) < static_cast<U>(v))
       lo = mid + 1;
     else
       hi = mid;
   }
   return lo;
 }
+
+// Walk the run [j0, j1) of the staged chunk: test(j), branch-free, says
+// whether sender j pairs with this receiver; body(j) runs over the senders
+// that passed, in ascending order.  A warp's pre-test steps are the longest
+// run of its lanes and its body steps the largest count of set bits.
+// Returns the number of senders that passed (the checking build counts it).
+template <typename Test, typename Body>
+__device__ __forceinline__ unsigned fsi_walk_run(int j0, int j1, Test test,
+                                                 Body body) {
+  unsigned passed = 0;
+  for (int base = j0; base < j1; base += FSI_BATCH) {
+    const int cnt = min(FSI_BATCH, j1 - base);
+    unsigned live = 0u;
+#pragma unroll
+    for (int t = 0; t < FSI_BATCH; ++t) {
+      if (t >= cnt) break;
+      live |= static_cast<unsigned>(test(base + t)) << t;
+    }
+    passed += __popc(live);
+    while (live) {
+      const int j = base + __ffs(live) - 1;
+      live &= live - 1u;
+      body(j);
+    }
+  }
+  return passed;
+}
+
+// A checking build (-DFSI_WALK_COUNT; chip_smoke.py makes one beside the
+// library the solver loads) counts what the phase-1 and phase-2 kernels
+// walk, summed over their launches: [0] the senders the receivers
+// pre-test, [1] the pre-test steps of the warps (for each run, the longest
+// of the 32 lanes'), [2] the senders that pass the pre-test.  The results
+// are the same as without the counts.  Blocks are whole warps there.
+#ifdef FSI_WALK_COUNT
+struct FsiWalkCount {
+  unsigned tested = 0, steps = 0, passed = 0;
+  // every lane of the warp calls it for the same run
+  __device__ __forceinline__ void run(int j0, int j1) {
+    tested += j1 - j0;
+    steps += __reduce_max_sync(0xffffffffu, static_cast<unsigned>(j1 - j0));
+  }
+  __device__ __forceinline__ void add_to(unsigned long long* counts) {
+    const unsigned t = __reduce_add_sync(0xffffffffu, tested);
+    const unsigned p = __reduce_add_sync(0xffffffffu, passed);
+    if ((threadIdx.x & 31) == 0) {
+      atomicAdd(&counts[0], static_cast<unsigned long long>(t));
+      atomicAdd(&counts[1], static_cast<unsigned long long>(steps));
+      atomicAdd(&counts[2], static_cast<unsigned long long>(p));
+    }
+  }
+};
+
+// Copy a kernel's counts to the host array out[3] and clear them; returns
+// a cudaError_t (0 = success).
+static inline int fsi_read_counts(const void* symbol, unsigned long long* out) {
+  cudaError_t err = cudaMemcpyFromSymbol(out, symbol,
+                                         3 * sizeof(unsigned long long));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const unsigned long long zero[3] = {0, 0, 0};
+  return static_cast<int>(cudaMemcpyToSymbol(symbol, zero, sizeof(zero)));
+}
+#endif
 
 // Asynchronous copy of one 4- or 8-byte element from device memory to shared
 // memory (cp.async, sm_80 and later): the copies of a chunk all start

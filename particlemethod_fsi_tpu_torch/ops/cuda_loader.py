@@ -130,8 +130,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.fsi_phase2_rows.argtypes = [
         *lib.fsi_virial_rows.argtypes[:3], vp,  # is_double pos vel key
         *lib.fsi_virial_rows.argtypes[3:]]
-    lib.fsi_phase2_occupancy.restype = ci
-    lib.fsi_phase2_occupancy.argtypes = [ci, ci, ci, ci, ci]  # dbl rows planar st block
+    for occupancy in (lib.fsi_phase1_occupancy, lib.fsi_phase2_occupancy):
+        occupancy.restype = ci
+        occupancy.argtypes = [ci, ci, ci, ci, ci]  # dbl rows planar st block
     lib.fsi_bf16_microbench.restype = ci
     lib.fsi_bf16_microbench.argtypes = [
         ci, vp, vp, vp, ci, ci, ci, ci, vp,  # bf16 x y partial b w reps splits stream

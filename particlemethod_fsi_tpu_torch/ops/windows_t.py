@@ -36,11 +36,11 @@ incremented where the kernel is launched and nowhere else.
 Bound on an H100: by the roofline count (each input read once, each output
 written once, against the pair math of the true neighbour pairs only) all
 three sweeps are bound by bytes, some tens of bytes a particle.  The kernels
-do not reach that bound.  Phases 1 and 3 test every sender of a block's
-windows (an order of magnitude more candidates than neighbours), so their
-time goes to shared-memory reads and the ring and radius tests; phase 2
-walks only each receiver's ring run, a third of that (:func:`ring_runs`
-computes the runs for the tests).  See the notes in ``csrc/phase1_sweep.cu``,
+do not reach that bound.  The virial (phase 3) tests every sender of a
+block's windows (an order of magnitude more candidates than neighbours), so
+its time goes to shared-memory reads and the ring and radius tests; phases
+1 and 2 walk only each receiver's ring run, a third of that
+(:func:`ring_runs` computes the runs for the tests).  See the notes in ``csrc/phase1_sweep.cu``,
 ``csrc/phase2_sweep.cu`` and ``csrc/virial_sweep.cu``; the measured times
 stand in ``PERF.md``.
 """
@@ -246,8 +246,9 @@ def phase2_sweep(frame: SortedFrame, pp, pa, gc, invmu, win_start, win_len,
 
 
 def ring_runs(frame: SortedFrame, win_start, win_len, offs, block: int):
-    """Each receiver's ring run per row offset under the key rule, as kernel
-    2 (``fsi_phase2_sweep``) finds it: the senders whose key lies in
+    """Each receiver's ring run per row offset under the key rule, as kernels
+    1 and 2 (``fsi_phase1_sweep``, ``fsi_phase2_sweep``) find it: the
+    senders whose key lies in
     ``key_i + off - 1 .. key_i + off + 1`` are one run of rows of the sorted
     frame.  Returns ``(lo, hi)`` int64 ``[N, n_off]``, clipped to the
     block's window.  Used by the tests and ``chip_smoke.py``; nothing on the

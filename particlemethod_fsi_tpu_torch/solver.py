@@ -90,23 +90,50 @@ def adjust_domain(domain_min, domain_max, spacing: float, two_dimensional: bool)
     return dmin, dmax
 
 
+def _wrap_test(grid: CellGrid, pos_min, pos_max, support: float,
+               two_dimensional: bool):
+    """Axes with at least 3 cells (never z in 2-D) where the gaps between
+    the extreme valid positions and the domain's two ends, summed, are
+    narrower than the support: pairs span the periodic boundary there."""
+    return tuple(
+        grid.cell_count[d] >= 3 and not (two_dimensional and d == 2)
+        and (float(pos_min[d]) - grid.domain_min[d])
+        + (grid.domain_min[d] + grid.domain_width[d] - float(pos_max[d]))
+        < support
+        for d in range(3))
+
+
 def wrapped_axes(grid: CellGrid, positions, valid, support: float,
                  two_dimensional: bool):
     """Axes where interacting pairs span the periodic boundary (the test of
     ``ops/ghosts.py::wrapped_axes`` in the JAX package; such a scene needs
     ghost rows, which are not ported yet)."""
     pos = np.asarray(positions)[np.asarray(valid)]
-    axes = [False, False, False]
     if pos.size == 0:
-        return tuple(axes)
-    for d in range(3):
-        if grid.cell_count[d] < 3 or (two_dimensional and d == 2):
-            continue
-        lo = float(pos[:, d].min()) - grid.domain_min[d]
-        hi = grid.domain_min[d] + grid.domain_width[d] - float(pos[:, d].max())
-        if lo + hi < support:
-            axes[d] = True
-    return tuple(axes)
+        return (False, False, False)
+    return _wrap_test(grid, pos.min(axis=0), pos.max(axis=0), support,
+                      two_dimensional)
+
+
+def valid_extremes(pos: torch.Tensor, invalid: torch.Tensor) -> torch.Tensor:
+    """[2, 3] on the device: the per-axis minimum and maximum of the rows
+    of ``pos`` that are not ``invalid``, by a masked ``amin``/``amax``
+    (infinite where no row is valid).  No host transfer."""
+    pad = invalid[:, None]
+    return torch.stack([pos.masked_fill(pad, float("inf")).amin(dim=0),
+                        pos.masked_fill(pad, float("-inf")).amax(dim=0)])
+
+
+def wrapped_axes_device(grid: CellGrid, pos: torch.Tensor,
+                        valid: torch.Tensor, support: float,
+                        two_dimensional: bool):
+    """:func:`wrapped_axes` of positions and validity that lie on the
+    device: the extremes of :func:`valid_extremes`, read back in one
+    transfer of six numbers, then the same test.  Minimum and maximum are
+    exact, so both forms give the same answer (no valid row: the extremes
+    are infinite and nothing wraps)."""
+    pos_min, pos_max = valid_extremes(pos, ~valid).tolist()
+    return _wrap_test(grid, pos_min, pos_max, support, two_dimensional)
 
 
 def make_window_config(cfg: CaseConfig, kernels: KernelSet, *,
@@ -525,6 +552,30 @@ class Simulation:
             "apply_initial_velocity_profile (the 'bar_first_mode' profile) "
             "is not ported yet (scene-modules slice)")
 
+    def _refuse_wrap(self, extremes: list, where=None) -> None:
+        """Raise where pairs of a state span the periodic boundary, as
+        set-up does: the window sweeps clip windows at the domain edge, so
+        without ghost rows such pairs would be dropped without a word.
+        ``extremes`` holds the :func:`valid_extremes` of the states a chunk
+        sweeps and returns, in order, the state it starts from first (the
+        error names the first that wraps and its step), or of the one state
+        that ``where`` names.  They are read back in one transfer, so a
+        chunk tests every step's state for one small reduction a step and
+        one host read.  A stop-gap: the periodic-ghost slice replaces it
+        with the JAX package's ghost refresh at every chunk boundary."""
+        for k, (lo, hi) in enumerate(torch.stack(extremes).tolist()):
+            axes = _wrap_test(self.cell_grid, lo, hi, self._frame_support,
+                              self.cfg.two_dimensional)
+            if any(axes):
+                names = ", ".join(a for a, w in zip("xyz", axes) if w)
+                at = where or ("in the state the chunk starts from" if k == 0
+                               else f"after {k} steps of the chunk")
+                raise NotImplementedError(
+                    f"pairs span the periodic boundary on axis {names} {at}: "
+                    "periodic ghosts are not ported yet (periodic-ghosts "
+                    "slice), and without them the window sweeps would drop "
+                    "those pairs")
+
     # ------------------------------------------------------------------
     def step(self, state: ParticleState) -> ParticleState:
         """One step with a fresh frame; the input state is left intact."""
@@ -535,14 +586,23 @@ class Simulation:
         """``n_steps`` steps.  With a rebuild margin the frame cache lives
         for the chunk (it starts empty, so the first step rebuilds), as in
         the JAX package; ``last_chunk_rebuilds`` and ``rebuilds`` count the
-        frame rebuilds.  The input state is left intact."""
+        frame rebuilds.  The input state is left intact.
+
+        Raises ``NotImplementedError``, once the chunk is done, where pairs
+        of the state it starts from, of any state a step of it starts from,
+        or of the state it would return span the periodic boundary
+        (:meth:`_refuse_wrap`)."""
         cache = self._init_cache(state) if self._margin_cached else None
         with torch.no_grad():
+            invalid = state.prop < 0  # types do not change inside a chunk
+            extremes = [valid_extremes(state.pos, invalid)]
             for _ in range(n_steps):
                 state, cache = self._step_core(state, cache)
+                extremes.append(valid_extremes(state.pos, invalid))
         done = cache["rebuilds"] if cache is not None else n_steps
         self.last_chunk_rebuilds = done
         self.rebuilds += done
+        self._refuse_wrap(extremes)
         return state
 
     # ------------------------------------------------------------------
@@ -571,11 +631,17 @@ class Simulation:
         starts from is read in that same transfer, so the guard adds one
         small reduction a step and one host read a chunk (for the last
         state).  Without a margin there is no such read and the guard makes
-        its own, once a step."""
+        its own, once a step.
+
+        Raises ``NotImplementedError`` as :meth:`run_chunk` does, where a
+        chunk stays healthy.  A diverged chunk is returned with ``healthy``
+        False and not tested: the caller discards it and runs again from an
+        earlier state, and that run is tested."""
         cache = self._init_cache(state) if self._margin_cached else None
         done, healthy = 0, True
         with torch.no_grad():
             invalid = state.prop < 0  # types do not change inside a chunk
+            extremes = [valid_extremes(state.pos, invalid)]
             probe = None  # the entry state is not judged, as in the JAX loop
             while done < n_steps:
                 nxt, cache = self._step_core(state, cache, probe)
@@ -583,6 +649,7 @@ class Simulation:
                     healthy = False
                     break
                 state, done = nxt, done + 1
+                extremes.append(valid_extremes(state.pos, invalid))
                 probe = self._top_speed2(state, invalid)
                 if cache is None and not self._healthy(probe.item()):
                     healthy = False
@@ -592,6 +659,8 @@ class Simulation:
         rebuilds = cache["rebuilds"] if cache is not None else done
         self.last_chunk_rebuilds = rebuilds
         self.rebuilds += rebuilds
+        if healthy:
+            self._refuse_wrap(extremes)
         return state, done, healthy
 
     # ------------------------------------------------------------------
@@ -694,8 +763,13 @@ class Simulation:
     def diagnostics(self, state: ParticleState) -> dict:
         """Device diagnostics + host-side tensor assembly (the full [N,3,3]
         arrays are built in numpy).  Keys, shapes and dtypes are those of the
-        JAX package's ``Simulation.diagnostics``."""
+        JAX package's ``Simulation.diagnostics``.  Raises
+        ``NotImplementedError`` where pairs of ``state`` span the periodic
+        boundary (:meth:`_refuse_wrap`): the sweeps here use the same
+        unghosted frame as the step."""
         t0 = _time.perf_counter()
+        self._refuse_wrap([valid_extremes(state.pos, state.prop < 0)],
+                          "in the state of the diagnostics")
         with torch.no_grad():
             dev = self._diagnostics(state)
             out = {k: v.cpu().numpy() for k, v in dev.items()}

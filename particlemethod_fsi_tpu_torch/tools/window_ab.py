@@ -1,19 +1,22 @@
-"""The phase-2 kernels of this source tree against those of another, on the
-card, in one process: bit for bit and in turns.
+"""The window-sweep kernels of this source tree against those of another
+tree, on the card, in one process: bit for bit and in turns.
 
-No counterpart in the JAX package.  Both libraries are built from their
-``csrc/`` directories by ``ops/cuda_loader``; the inputs are the
-1M-particle bench scene's (``build_case(1000)``) after a few steps, float32,
-one fresh frame with its window table, and the phase-2 fields of phase 1 on
-that frame: the key rule's inputs for kernel 2 (``fsi_phase2_sweep``), the
-row rule's for kernel 5 (``fsi_phase2_rows``).  Each kernel of each library
-runs on the same inputs; the outputs are compared bit for bit and the warm
-times (mean of ``REPS`` back-to-back launches by CUDA events) are taken in
-turns, other, this, this, other, twice over.  Kernels 1 and 3 of both
-libraries are compared and timed the same way, as a control.  Prints one
-JSON line, after the card's name and power limit.
+No counterpart in the JAX package.  Both libraries are built by
+``ops/cuda_loader``: this tree's from its ``csrc/``, the other from the
+``csrc/`` given by ``--other``.  The inputs are the 1M-particle bench
+scene's (``build_case(1000)``) after a few steps, float32, one fresh frame
+with its window table on each backend, and the fields of phase 1 on that
+frame: the key rule's inputs for kernels 1-3 (``fsi_phase1_sweep``, also
+with the count, ``fsi_phase2_sweep``, ``fsi_virial_sweep``), the row rule's
+for kernels 4-6 (``fsi_phase1_rows``, ``fsi_phase2_rows``,
+``fsi_virial_rows``).  Each kernel of each library runs on the same inputs;
+the outputs are compared bit for bit and the warm times (mean of ``REPS``
+back-to-back launches by CUDA events) are taken in turns, other, this, this,
+other, twice over.  With ``--sass`` it also compares the two libraries'
+machine code (``cuobjdump -sass``) function by function.  Prints one JSON
+line, after the card's name and power limit.
 
-    python -m particlemethod_fsi_tpu_torch.tools.phase2_ab --other DIR/csrc
+    python -m particlemethod_fsi_tpu_torch.tools.window_ab --other DIR/csrc
 
 ``DIR`` is an unpacked copy of another revision of this package with the
 same C interface (for example ``git archive`` of a parent commit).  Needs
@@ -24,6 +27,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -76,6 +80,8 @@ def _calls():
             p1 = (frame, *win, offs, ks, cfg, tables)
             calls["phase1_sweep"] = lambda p1=p1, s=grid.support: (
                 pwt.phase1_sweep(*p1, support=s))
+            calls["phase1_sweep_count"] = lambda p1=p1, s=grid.support: (
+                pwt.phase1_sweep(*p1, support=s, count=True))
             calls["phase2_sweep"] = lambda a=a, kw=kw: pwt.phase2_sweep(
                 *a, **kw)
             calls["virial_sweep"] = lambda a=a, kw=kw: pwt.virial_sweep(
@@ -86,18 +92,56 @@ def _calls():
             a = (frame, f1["pressure_p"], f1["pressure_a"],
                  f1["gravity_center"].contiguous(), f1["mu"], *win, grid, ks,
                  cfg, tables)
+            calls["phase1_rows"] = lambda p1=(frame, *win, grid, ks, cfg,
+                                              tables): pw.phase1_rows_sweep(*p1)
             calls["phase2_rows"] = lambda a=a, kw=kw: pw.phase2_rows_sweep(
+                *a, **kw)
+            calls["virial_rows"] = lambda a=a, kw=kw: pw.virial_rows_sweep(
                 *a, **kw)
     return calls
 
 
+def _sass(lib) -> dict:
+    """name -> machine code of each kernel function of a built library
+    (``cuobjdump -sass``, beside ``nvcc``)."""
+    cuobjdump = Path(cuda_loader._find_nvcc()).parent / "cuobjdump"
+    text = subprocess.run([str(cuobjdump), "-sass", lib._name],
+                          capture_output=True, text=True, check=True).stdout
+    funcs, name = {}, None
+    for line in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            funcs[name] = []
+        elif name is not None and line.strip():
+            funcs[name].append(line.strip())
+    return {k: "\n".join(v) for k, v in funcs.items()}
+
+
+def _compare_sass(this, other) -> dict:
+    """For each kernel family (the source's template name), how many of its
+    functions the two libraries compile to the same machine code."""
+    a, b = _sass(this), _sass(other)
+    out = {}
+    for name in sorted(set(a) | set(b)):
+        fam = re.sub(r"^_Z\d+", "", name).split("I")[0]
+        st = out.setdefault(fam, {"same": 0, "differ": 0, "only_one": 0})
+        if name not in a or name not in b:
+            st["only_one"] += 1
+        else:
+            st["same" if a[name] == b[name] else "differ"] += 1
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--other", required=True, type=Path,
-                    help="csrc/ directory of the other source tree")
+    ap.add_argument("--other", type=Path, required=True,
+                    help="csrc/ directory of the other tree")
+    ap.add_argument("--sass", action="store_true",
+                    help="also compare the machine code function by function")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
-        print("phase2_ab: no CUDA device", file=sys.stderr)
+        print("window_ab: no CUDA device", file=sys.stderr)
         return 1
     this = cuda_loader.load()
     other = cuda_loader.build(args.other.resolve())
@@ -119,9 +163,12 @@ def main(argv=None) -> int:
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60).stdout.strip()
+    line = {"n_side": N_SIDE, "steps": STEPS, "reps": REPS,
+            "other": str(args.other), "kernels": result}
+    if args.sass:
+        line["sass"] = _compare_sass(this, other)
     print(card)
-    print(json.dumps({"n_side": N_SIDE, "steps": STEPS, "reps": REPS,
-                      "kernels": result}))
+    print(json.dumps(line))
     return 0
 
 

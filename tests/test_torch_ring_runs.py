@@ -1,5 +1,6 @@
-"""The ring runs that the phase-2 kernels walk (kernels 2 and 5,
-``csrc/phase2_sweep.cu``).  The frame is sorted by key, so for one receiver
+"""The ring runs that the phase-1 and phase-2 kernels walk (kernels 1, 4, 2
+and 5, ``csrc/phase1_sweep.cu`` and ``csrc/phase2_sweep.cu``).  The frame is
+sorted by key, so for one receiver
 and one row offset the senders of its block's window that pass the pair
 rule's ring test are one contiguous run of rows, found by two lower bounds
 on the key: ``windows_t.ring_runs`` (key rule) and ``windows.ring_runs_rows``
@@ -13,10 +14,12 @@ to the frame's end -- this file shows that
 * the run is exactly the set of window senders that pass the ring test
   (the row rule's ``j != i`` aside: the receiver's own row lies in its run,
   and the kernel tests it);
-* the plain phase-2 sweep over the runs alone (one receiver a block, its
-  run its window) equals the plain sweep over the block windows in float64,
-  rtol 1e-13 plus 1e-13 of the row's largest magnitude: the same terms,
-  summed in another order;
+* the plain phase-1 and phase-2 sweeps over the runs alone (one receiver a
+  block, its run its window) equal the plain sweeps over the block windows
+  in float64, rtol 1e-13 plus 1e-13 of the row's largest magnitude: the
+  same terms, summed in another order (the neighbour count exactly), also
+  with a sender at exactly the kernel radius of a receiver, which phase 1's
+  inclusive radius test takes;
 * every valid row's key is its ``cell_coords`` linear cell on a frame sorted
   from its positions, which is what makes the row rule's runs exact;
 * the runs are shorter than the windows: what the redesign gains.
@@ -202,6 +205,109 @@ def test_phase2_over_the_runs_alone(name, rule):
         assert scale > 0, (name, rule, r)
         torch.testing.assert_close(got[r], want[r], rtol=1e-13,
                                    atol=1e-13 * scale)
+
+
+def _phase1_windows_and_runs(s: Setup, rule: str, runs, *, count: bool,
+                             support: float = None):
+    """The plain phase-1 sums over the block windows and over the runs as
+    one-receiver windows."""
+    one = s.cfg._replace(block=1)
+    if rule == "key":
+        kw = dict(support=s.grid.support if support is None else support,
+                  count=count)
+        return (pwt.phase1_sweep_plain(s.frame, *s.windows, s.offs, s.ks,
+                                       s.cfg, s.tables, **kw),
+                pwt.phase1_sweep_plain(s.frame, *runs, s.offs, s.ks, one,
+                                       s.tables, **kw))
+    return (pw.phase1_rows_sweep_plain(s.frame, *s.windows, s.grid, s.ks,
+                                       s.cfg, s.tables),
+            pw.phase1_rows_sweep_plain(s.frame, *runs, s.grid, s.ks, one,
+                                       s.tables))
+
+
+def _assert_phase1_equal(got, want, s: Setup, count: bool, what):
+    live = [pw.P1_WP, pw.P1_DIV]
+    if s.cfg.surface_tension:
+        live += [pw.P1_DA, pw.P1_GX, pw.P1_GY] + (
+            [] if s.cfg.planar else [pw.P1_GZ])
+    for r in live:
+        scale = float(want[r].abs().max())
+        assert scale > 0, (what, r)
+        torch.testing.assert_close(got[r], want[r], rtol=1e-13,
+                                   atol=1e-13 * scale)
+    for r in set(range(7)) - set(live) - {pw.P1_COUNT}:
+        assert not bool(want[r].any()) and not bool(got[r].any()), (what, r)
+    assert torch.equal(got[pw.P1_COUNT], want[pw.P1_COUNT]), what
+    assert bool(want[pw.P1_COUNT].any()) == count, what
+
+
+@pytest.mark.parametrize("name,rule", RULE_FRAMES)
+def test_phase1_over_the_runs_alone(name, rule):
+    s = _setup(name)
+    lo, hi = _runs(s, rule)
+    runs = (lo.to(torch.int32).contiguous(),
+            (hi - lo).to(torch.int32).contiguous())
+    # the row rule always counts; the key rule on request (every dump)
+    for count in ((False, True) if rule == "key" else (True,)):
+        want, got = _phase1_windows_and_runs(s, rule, runs, count=count)
+        _assert_phase1_equal(got, want, s, count, (name, rule, count))
+
+
+def _at_exactly(s: Setup, radius2: float):
+    """The fresh ``mini_dam`` frame sorted again after one fluid particle is
+    moved to exactly ``sqrt(radius2)`` from a fluid receiver, by the plain
+    versions' own arithmetic (``dx*dx + dy*dy`` in float64 is ``radius2``
+    bit for bit); returns the new frame's Setup, the two rows, and the same
+    with that sender one step (the smallest) farther out."""
+    f = s.frame
+    fluid = (f.prop == 1).nonzero()[:, 0]
+    i, j = int(fluid[len(fluid) // 2]), int(fluid[0])
+    xi, yi = float(f.pos[i, 0]), float(f.pos[i, 1])
+    r = float(np.sqrt(radius2))
+    # dx near r, ulp by ulp, and a small dy whose square moves rij2 by a
+    # few of its ulps
+    found = next(((xj, yj) for k in range(400) for m in range(-8, 9)
+                  for xj, yj in [(xi + r + m * np.spacing(xi + r),
+                                  yi + k * 1e-12)]
+                  if (xj - xi) * (xj - xi) + (yj - yi) * (yj - yi)
+                  == radius2), None)
+    assert found is not None
+    out = []
+    for step in (0, 1):
+        pos = f.pos.clone()
+        pos[j, 0] = found[0] + step * 4 * np.spacing(found[0])
+        pos[j, 1] = found[1]
+        frame = pk.sort_frame(pos, f.vel, f.prop, s.grid)
+        new = Setup(frame, s.grid, s.ks, s.tables, s.cfg)
+        rows = (frame.orig == i).nonzero()[0, 0], (frame.orig == j).nonzero()[0, 0]
+        out.append((new, rows))
+    return out
+
+
+@pytest.mark.parametrize("rule", ["key", "rows"])
+def test_phase1_takes_a_sender_at_exactly_the_radius(rule):
+    """Phase 1's radius tests are inclusive (``radius^2 - rij2 >= 0``, JAX
+    ``pallas_windows_t.py``, ``pallas_pairwise.py``), unlike phase 2's: a
+    sender at exactly the radius counts, and the runs alone give the
+    windows' sums.  Key rule: the kernel radius, read through the count
+    with the support set to it; row rule: the frame's support, its count's
+    radius."""
+    s = _setup("mini_dam")
+    radius = s.ks.radius_p if rule == "key" else s.grid.support
+    counts = []
+    for new, (ri, rj) in _at_exactly(s, radius * radius):
+        lo, hi = _runs(new, rule)
+        runs = (lo.to(torch.int32).contiguous(),
+                (hi - lo).to(torch.int32).contiguous())
+        # the sender lies in the receiver's run
+        assert any(int(lo[ri, o]) <= rj < int(hi[ri, o])
+                   for o in range(len(new.offs)))
+        want, got = _phase1_windows_and_runs(new, rule, runs, count=True,
+                                             support=radius)
+        _assert_phase1_equal(got, want, new, True, rule)
+        counts.append(int(want[pw.P1_COUNT][ri]))
+    # at exactly the radius the pair counts; one step farther out it does not
+    assert counts[0] == counts[1] + 1
 
 
 @pytest.mark.parametrize("name", [f for f in FRAMES if f != "c8_reused"])
