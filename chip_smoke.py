@@ -16,8 +16,8 @@ fault:
 1. the card: name and power limit as ``nvidia-smi`` gives them;
 2. build: the CUDA kernels under ``particlemethod_fsi_tpu_torch/csrc/`` are
    compiled from source (seconds printed as set-up), and beside them a
-   checking build with ``-DFSI_WALK_COUNT``, whose phase-1 and phase-2
-   kernels count what they walk;
+   checking build with ``-DFSI_WALK_COUNT``, whose window kernels (1-6)
+   count what they walk;
 3. kernels: each hand-written kernel against its plain PyTorch version on
    the card -- (a) the ``double`` instances of kernels 1-6 on small seeded
    frames for every specialization branch, 2-D and 3-D, rtol 1e-12, and the
@@ -28,12 +28,12 @@ fault:
    the kernel must lie as close to a float64 evaluation as the plain
    float32 version does; timed with inputs warm in L2 (back-to-back
    launches) and cold (L2 flushed before every launch), kernel 1 also with
-   the neighbour count; the phase-1 and phase-2 kernels (1, 4, 2 and 5)
-   also launched twice and held bit-equal, and once through the checking
-   build, bit-equal again, whose count of the senders each receiver
-   pre-tests must equal the plain ring runs' total (and for phase 1, the
-   senders passing the pre-test the pairs inside the kernel's reach);
-   printed beside the window senders;
+   the neighbour count; each window kernel (1-6) also launched twice and
+   held bit-equal, and once through the checking build, bit-equal again,
+   whose count of the senders each receiver pre-tests must equal the plain
+   ring runs' total (and the senders passing the pre-test, for phase 1 the
+   pairs inside the kernel's reach, for the virial phase 2's count on the
+   same frame: the same pre-test); printed beside the window senders;
 4. a small coupled scene in float64 on both backends, card (kernels)
    against CPU (plain versions), ten steps; and the gate case (6,724
    particles, float64, 100 steps through ``load_case``) on both backends
@@ -359,9 +359,11 @@ def check_pads_in_windows(device) -> float:
     """Kernels 4-6 (double) with pad rows inside the fluid: every pad moved
     next to a fluid particle and every window run on to the frame's end, so
     that each pad lies in every receiver's window and in some receivers'
-    position rings.  Kernels 4 and 6 keep it out by their validity test
-    alone; kernel 5 by its ring runs, taken from the key (a pad's key
-    ``num_cells`` lies in no ring), before that test.  Against the plain
+    position rings.  Each kernel keeps it out by its ring runs before its
+    validity test: kernel 5 takes them from the key (a pad's key
+    ``num_cells`` lies in no ring), kernels 4 and 6 from the linear cells of
+    the staged positions (a pad's, ``INT_MIN`` searched as unsigned, sorts
+    last).  Against the plain
     versions (rtol 1e-12 of the row scale), and the real rows against the
     same kernels on the exact windows."""
     import torch
@@ -493,7 +495,7 @@ def main_frame(sim, state):
 def check_and_time_main_frame(sim, state, counting) -> list:
     """Kernels 1-3 in float32 on the field-major main path's own frame,
     against their plain versions, with times and the roofline bound; what
-    kernel 2 walks, counted by the checking build ``counting``."""
+    kernels 1-3 walk, counted by the checking build ``counting``."""
     from particlemethod_fsi_tpu_torch.ops import windows as pw
     from particlemethod_fsi_tpu_torch.ops import windows_t as pwt
 
@@ -527,8 +529,8 @@ def check_and_time_main_frame(sim, state, counting) -> list:
     # that radius (the same rij2), and the plain count's
     own = float(run1(support=ks.radius_p, count=True)[pwt.P1_COUNT]
                 .double().sum())
-    walk1 = ring_walk("phase1_sweep", run1, runs, rows[0], counting,
-                      passed=(own, true_pairs))
+    walk1, _ = ring_walk("phase1_sweep", run1, runs, rows[0], counting,
+                         passed=(own, true_pairs))
 
     # phase 2 and the virial on the fields of phase 1 + EOS: the same
     # float32-valued inputs for all three evaluations
@@ -549,11 +551,16 @@ def check_and_time_main_frame(sim, state, counting) -> list:
             lambda k=kernel: k(*a32, **kw), lambda p=plain: p(*a32, **kw),
             lambda p=plain: p(*a64, **kw),
             n * per_particle + table_bytes, true_pairs * per_pair))
-    walk = ring_walk("phase2_sweep", lambda: pwt.phase2_sweep(*a32, **kw),
-                     runs, rows[1], counting)
+    walk, passed2 = ring_walk(
+        "phase2_sweep", lambda: pwt.phase2_sweep(*a32, **kw), runs, rows[1],
+        counting)
+    walk3, _ = ring_walk(
+        "virial_sweep", lambda: pwt.virial_sweep(*a32, **kw), runs, rows[2],
+        counting, passed_as=("kernel 2", passed2))
     print(f"kernels at 1M (pallas_t frame): frame rows {n}, window senders "
-          f"per receiver {tested_pairs / n:.1f} (kernel 3 tests them all); "
-          f"kernel 1: {walk1}; kernel 2: {walk}; pairs inside the kernel "
+          f"per receiver {tested_pairs / n:.1f} (kernels 1-3 walk only their "
+          f"ring runs); kernel 1: {walk1}; kernel 2: {walk}; kernel 3: "
+          f"{walk3}; pairs inside the kernel "
           f"radius per receiver {true_pairs / n:.2f}, longest window "
           f"{int(win[1].max())}; kernel 1 with the neighbour count "
           f"{rows[0]['count_ms']:.4f} ms warm, "
@@ -564,8 +571,8 @@ def check_and_time_main_frame(sim, state, counting) -> list:
 def check_and_time_rows_frame(sim, state, counting) -> list:
     """Kernels 4-6 in float32 on the row-major main path's own frame,
     against their plain versions, with times and the roofline bound;
-    kernel 4's fields against kernel 1's on the same frame; and what kernel
-    5 walks, counted by the checking build ``counting``."""
+    kernel 4's fields against kernel 1's on the same frame; and what
+    kernels 4-6 walk, counted by the checking build ``counting``."""
     import torch
     from particlemethod_fsi_tpu_torch.ops import windows as pw
     from particlemethod_fsi_tpu_torch.ops import windows_t as pwt
@@ -608,7 +615,7 @@ def check_and_time_rows_frame(sim, state, counting) -> list:
         fail("phase1_rows against phase1_sweep at 1M: neighbour counts differ")
     # the pre-test's reach is the support, the count's radius: the senders
     # passing it are the kernel's own count, and the plain version's
-    walk4 = ring_walk(
+    walk4, _ = ring_walk(
         "phase1_rows", lambda: pw.phase1_rows_sweep(*p1), runs, rows[0],
         counting, passed=(float(f4["neighbor_count"].double().sum()),
                           float(pw.phase1_rows_sweep_plain(*p1)[pw.P1_COUNT]
@@ -632,19 +639,25 @@ def check_and_time_rows_frame(sim, state, counting) -> list:
             lambda k=kernel: k(*a32, **kw), lambda p=plain: p(*a32, **kw),
             lambda p=plain: p(*a64, **kw), n * per_particle + table_bytes,
             true_pairs * per_pair + n * ROWS_FLOP_PER_PARTICLE))
-    walk = ring_walk("phase2_rows", lambda: pw.phase2_rows_sweep(*a32, **kw),
-                     runs, rows[1], counting)
+    walk, passed5 = ring_walk(
+        "phase2_rows", lambda: pw.phase2_rows_sweep(*a32, **kw), runs,
+        rows[1], counting)
+    walk6, _ = ring_walk(
+        "virial_rows", lambda: pw.virial_rows_sweep(*a32, **kw), runs,
+        rows[2], counting, passed_as=("kernel 5", passed5))
     print(f"kernels at 1M (pallas frame): kernel 4's fields against kernel "
           f"1's on the same frame: largest difference {diff4:.3e}, neighbour "
           f"counts equal; window senders per receiver "
-          f"{float(win[1].double().sum()) * wcfg.block / n:.1f} (kernel 6 "
-          f"tests them all); kernel 4: {walk4}; kernel 5: {walk}; pairs "
+          f"{float(win[1].double().sum()) * wcfg.block / n:.1f} (kernels 4-6 "
+          f"walk only their ring runs); kernel 4: {walk4}; kernel 5: {walk}; "
+          f"kernel 6: {walk6}; pairs "
           f"inside the kernel radius per receiver {true_pairs / n:.2f}")
     return rows
 
 
-def ring_walk(name, run, runs, row, counting, passed=None) -> str:
-    """Two launches of a phase-1 or phase-2 kernel must be bit-equal (each
+def ring_walk(name, run, runs, row, counting, passed=None,
+              passed_as=None):
+    """Two launches of a window kernel must be bit-equal (each
     receiver sums its senders in a fixed order, no atomics), and a third
     through the checking build ``counting`` (``-DFSI_WALK_COUNT``) bit-equal
     to them.  That launch counts in the kernel what it walked: the senders
@@ -655,15 +668,16 @@ def ring_walk(name, run, runs, row, counting, passed=None) -> str:
     reach, the plain version's): the senders passing must equal the first
     exactly and the second as the neighbour counts of ``judge`` do (a pair
     within one float32 rounding of the radius may fall either side).
+    ``passed_as`` = (another kernel, its count of senders passing): the
+    count must equal it exactly (the virial's pre-test is phase 2's).
     Returns the text of those counts at 1M, which also go into the kernel's
-    row of the ``kernels`` line."""
+    row of the ``kernels`` line, and the count of senders passing."""
     import ctypes
     import torch
     from particlemethod_fsi_tpu_torch.ops import cuda_loader
 
     counts = (ctypes.c_ulonglong * 3)()
     read = getattr(counting, f"fsi_{name.split('_')[0]}_counts")
-    read.restype, read.argtypes = ctypes.c_int, [ctypes.c_void_p]
     a, b = run(), run()
     torch.cuda.synchronize()
     if not torch.equal(a, b):
@@ -694,6 +708,12 @@ def ring_walk(name, run, runs, row, counting, passed=None) -> str:
                  f"{plain:.0f} by the plain version's")
         text = (f" (the pairs within its reach: the kernel's count exactly, "
                 f"the plain version's {plain / n:.2f})")
+    if passed_as is not None:
+        other, other_passed = passed_as
+        if counts[2] != other_passed:
+            fail(f"{name} at 1M: {counts[2]} senders passed the pre-test, "
+                 f"{other_passed} in {other} on the same frame")
+        text = f" ({other}'s, exactly)"
     warps = n // 32
     tested, steps, npass = counts[0] / n, counts[1] / warps, counts[2] / n
     plain_steps = float(
@@ -706,7 +726,7 @@ def ring_walk(name, run, runs, row, counting, passed=None) -> str:
             f"total, exactly), pre-test steps per warp {steps:.2f} (the "
             f"longest run of 32 lanes, from the plain runs "
             f"{plain_steps:.2f}), senders passing the pre-test per receiver "
-            f"{npass:.2f}{text}; two launches bit-equal")
+            f"{npass:.2f}{text}; two launches bit-equal"), counts[2]
 
 
 def _row(name, source, replaces, err, ms, cold_ms, plain_ms, nbytes, flops):
@@ -1296,7 +1316,7 @@ def main() -> int:
 
     t0 = time.time()
     # the library the solver loads and, beside it, the checking build that
-    # counts what the phase-2 kernels walk: all nvcc processes at once
+    # counts what the window kernels walk: all nvcc processes at once
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
         checking = pool.submit(cuda_loader.build, cuda_loader.CSRC_DIR,
                                ("FSI_WALK_COUNT",))
@@ -1311,19 +1331,21 @@ def main() -> int:
         elif "Used" in line and "registers" in line:
             print(f"  ptxas: {entry}: {line.split(':', 1)[1].strip()}")
         elif "bytes spill" in line and (
-                "phase1" in entry or "phase2" in entry
+                "phase1" in entry or "phase2" in entry or "virial" in entry
                 or "0 bytes spill stores, 0 bytes spill loads" not in line):
             print(f"  ptxas: {entry}: {line.strip()}")
     lib = cuda_loader.load()
-    for phase, kernels in ((1, "kernels 1 and 4"), (2, "kernels 2 and 5")):
-        query = getattr(lib, f"fsi_phase{phase}_occupancy")
+    for phase, kernels in (("phase1", "kernels 1 and 4"),
+                           ("phase2", "kernels 2 and 5"),
+                           ("virial", "kernels 3 and 6")):
+        query = getattr(lib, f"fsi_{phase}_occupancy")
         occupancy = {
             f"{'double' if dbl else 'float'},{'rows' if rule else 'key'},"
             f"{'planar' if planar else '3d'}{',st' if st else ''}":
                 query(dbl, rule, planar, st, 64)
             for dbl in (0, 1) for rule in (0, 1) for planar in (1, 0)
             for st in (0, 1)}
-        print(f"phase {phase} ({kernels}), resident blocks of 64 threads per "
+        print(f"{phase} ({kernels}), resident blocks of 64 threads per "
               "SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor): "
               + json.dumps(occupancy))
 

@@ -31,13 +31,37 @@
 // P, 1/mu and the key read once, four components written), some thirteen
 // microseconds at 1M particles; the pair math of the true neighbour pairs
 // needs less time than that at the float32 rate, so by the roofline the
-// kernel is bound by bytes.  As written it moves more (pos and vel staged as
-// [N,3] rows, nine rows written).  Like its siblings this simple design is
-// far from that bound: a receiver tests every sender of its block's windows,
-// an order of magnitude more candidates than neighbours, and that candidate
-// loop is where the time goes.  Sender tiles are staged once per block in
-// shared memory and read as broadcasts, the ring and squared-radius tests
-// come before the rsqrt, constants are folded on the host.
+// kernel is bound by bytes.  As written it moves more (pos and vel are
+// [N,3] rows, nine rows written).
+//
+// What held the first design back: each receiver tested every sender of its
+// block's windows (275 at the 1M bench scene, for 20 neighbours), staged in
+// tiles of 128 and read one sender a step for the whole block: the
+// candidate loop, not memory, set the time (0.519 ms for kernel 3 and 0.573
+// for kernel 6 on an NVIDIA H100 80GB HBM3 at 700 W, PERF.md).
+//
+// This design is phase 2's (phase2_sweep.cu), through the ring-run walk of
+// window_sweep.cuh: the frame is sorted by key, so the senders in a
+// receiver's ring for one offset are one run of rows.  A block stages the
+// windows of all its offsets together, in chunks (FsiChunk), by cp.async,
+// one array a field, only what the virial reads of a sender: x, y, vx, vy
+// (z, vz in 3-D), mu or 1/mu, and the key -- or, under the row rule, which
+// has no key argument, the linear cell of each sender computed from its
+// staged position (INT_MIN for a pad) and searched as unsigned, as kernel 4
+// does; the type for the row rule's pad test and the interaction ratios.
+// The receiver's pressures, gravity centre and surface-tension coefficient
+// stay in registers.  Each receiver finds its run in each window's part of
+// the chunk by two binary searches and walks only that run, in batches of
+// 32: a branch-free pre-test -- phase 2's, the first design's exact mask:
+// the ring, rij2 > 0 and the strict rij2 < reach2, and for the row rule
+// j != i and rij2 <= support2 -- sets one bit a sender, and the body runs
+// over the set bits in ascending order.  Each receiver sums the same terms
+// as the first design in the same order (offsets in order, rows ascending,
+// a run that two chunks split walked piece by piece), so the float results
+// are the first design's bit for bit.  Measured at the 1M bench scene on an
+// NVIDIA H100 80GB HBM3 at 700 W (PERF.md): kernel 3 0.182 ms warm (0.522
+// before), kernel 6 0.213 (0.575), the same 86 of 275 senders pre-tested a
+// receiver as phases 1 and 2.
 #include "window_sweep.cuh"
 
 // the constant table of phase 2 (the two kernels share `_phase2_consts`)
@@ -74,15 +98,28 @@ struct VirialParams {
   FsiRows<T> g;         // row-major rule only
 };
 
+#ifdef FSI_WALK_COUNT
+// the checking build's counts of this kernel (see FsiWalkCount), read and
+// cleared by fsi_virial_counts
+__device__ unsigned long long fsi_vr_counts[3];
+#endif
+
 template <typename T, bool PLANAR, bool ST, bool ROWS>
 __global__ void virial_sweep_kernel(const VirialParams<T> p) {
-  __shared__ T s_pos[FSI_TILE * 3];
-  __shared__ T s_vel[FSI_TILE * 3];
-  __shared__ T s_visc[FSI_TILE];
-  __shared__ int s_key[ROWS ? 1 : FSI_TILE];
-  __shared__ int s_prop[ST ? FSI_TILE : 1];
-  __shared__ int s_lin[ROWS ? FSI_TILE : 1];
+  constexpr int CAP = FsiChunk<T>::value;
+  constexpr int CAP_Z = PLANAR ? 1 : CAP;
+  // the chunk, one array a field (lanes read different senders)
+  __shared__ T s_x[CAP], s_y[CAP], s_z[CAP_Z];
+  __shared__ T s_vx[CAP], s_vy[CAP], s_vz[CAP_Z];
+  __shared__ T s_visc[CAP];
+  // key rule: the sort key; row rule: the linear cell from the staged
+  // position (INT_MIN for a pad).  Sorted within each window: the run
+  // searches.
+  __shared__ int s_key[CAP];
+  __shared__ int s_prop[(ST || ROWS) ? CAP : 1];
   __shared__ T s_ratio[FSI_TYPE_COUNT * FSI_TYPE_COUNT];
+  // where each offset's window starts in the concatenation of all windows
+  __shared__ int s_cum[FSI_MAX_OFFS + 1];
 
   const int b = blockIdx.x;
   const int i = b * blockDim.x + threadIdx.x;  // n is a multiple of blockDim.x
@@ -91,6 +128,8 @@ __global__ void virial_sweep_kernel(const VirialParams<T> p) {
     for (int t = threadIdx.x; t < FSI_TYPE_COUNT * FSI_TYPE_COUNT; t += blockDim.x)
       s_ratio[t] = p.ratio[t];
   }
+  const int* win_start = p.win_start + b * p.n_off;  // this block's windows
+  fsi_window_cum(s_cum, p.win_len + b * p.n_off, p.n_off);
 
   const T xi = p.pos[3 * i], yi = p.pos[3 * i + 1], zi = p.pos[3 * i + 2];
   const T vxi = p.vel[3 * i], vyi = p.vel[3 * i + 1], vzi = p.vel[3 * i + 2];
@@ -121,48 +160,95 @@ __global__ void virial_sweep_kernel(const VirialParams<T> p) {
   const T volume = p.c[VR_VOLUME];
   const T scale_di = p.c[VR_SCALE_DI];
 
+  __syncthreads();  // s_cum, s_ratio
+  const int total = s_cum[p.n_off];
+
   // s<a><b> = sum_j f_a * xij_b
   T sxx = 0, sxy = 0, syx = 0, syy = 0;
   T sxz = 0, syz = 0, szx = 0, szy = 0, szz = 0;
+#ifdef FSI_WALK_COUNT
+  FsiWalkCount walk;
+#endif
 
-  for (int o = 0; o < p.n_off; ++o) {
-    const int start = p.win_start[b * p.n_off + o];
-    const int len = p.win_len[b * p.n_off + o];
-    const int ring_centre = key_i + p.offs[o];
-    const FsiRing ring = ROWS ? fsi_ring(cxi, cyi, czi, o, p.g) : FsiRing{};
-    for (int t0 = 0; t0 < len; t0 += FSI_TILE) {
-      const int cnt = min(FSI_TILE, len - t0);
-      const int row0 = start + t0;
-      __syncthreads();  // the previous tile is consumed
-      fsi_stage(s_pos, p.pos + 3 * (size_t)row0, 3 * cnt);
-      fsi_stage(s_vel, p.vel + 3 * (size_t)row0, 3 * cnt);
-      fsi_stage(s_visc, p.visc + row0, cnt);
-      if (ROWS) {
-        fsi_stage_lin(s_lin, p.pos, p.prop, row0, cnt, p.g);
-      } else {
-        fsi_stage(s_key, p.key + row0, cnt);
+  // The windows of all offsets, concatenated in offset order, in chunks of
+  // CAP senders: a chunk is staged with cp.async, then each receiver finds
+  // and walks its own ring run within it.
+  for (int v0 = 0; v0 < total; v0 += CAP) {
+    const int v1 = min(total, v0 + CAP);
+    __syncthreads();  // the previous chunk is consumed
+    fsi_chunk_rows(s_cum, win_start, p.n_off, v0, v1, [&](int s, int row) {
+      const size_t r = static_cast<size_t>(row);
+      fsi_async_copy(s_x + s, p.pos + 3 * r);
+      fsi_async_copy(s_y + s, p.pos + 3 * r + 1);
+      fsi_async_copy(s_vx + s, p.vel + 3 * r);
+      fsi_async_copy(s_vy + s, p.vel + 3 * r + 1);
+      if (!PLANAR) {
+        fsi_async_copy(s_z + s, p.pos + 3 * r + 2);
+        fsi_async_copy(s_vz + s, p.vel + 3 * r + 2);
       }
-      if (ST) fsi_stage(s_prop, p.prop + row0, cnt);
-      __syncthreads();
+      fsi_async_copy(s_visc + s, p.visc + r);
+      if (!ROWS) fsi_async_copy(s_key + s, p.key + r);
+      if (ROWS || with_ratio) fsi_async_copy(s_prop + s, p.prop + r);
+    });
+    fsi_async_wait();
+    if (ROWS)
+      fsi_chunk_lin<T, PLANAR>(s_key, s_x, s_y, s_z, s_prop, p.pos, s_cum,
+                               win_start, p.n_off, v0, v1, p.g);
+    __syncthreads();
 
-      for (int j = 0; j < cnt; ++j) {
-        if (ROWS) {
-          if (!fsi_in_ring(s_lin[j], ring) || row0 + j == i) continue;
-        } else {
-          const int dk = s_key[j] - ring_centre;
-          if (dk < -1 || dk > 1) continue;
+    for (int o = 0; o < p.n_off; ++o) {
+      const int a = max(s_cum[o], v0), e = min(s_cum[o + 1], v1);
+      if (a >= e) continue;
+      // frame row of chunk index 0
+      const int row0 = v0 + win_start[o] - s_cum[o];
+      // This receiver's ring run within the chunk's part of the window,
+      // [j0, j1): the values of its ring are one interval (key rule: the
+      // keys key_i + off +- 1; row rule: the linear cells of fsi_ring,
+      // compared as unsigned so that a pad's INT_MIN sorts last), and the
+      // window is sorted by them, so two lower bounds find it.  The row
+      // rule's search is exact on a frame sorted from these positions, where
+      // every valid sender's linear cell is its key: the diagnostics always
+      // build such a frame (Simulation._diagnostics, on both backends).
+      const int ring_centre = key_i + p.offs[o];
+      const FsiRing ring = ROWS ? fsi_ring(cxi, cyi, czi, o, p.g) : FsiRing{};
+      int j0, j1;
+      if (ROWS) {
+        j0 = fsi_lower_bound<unsigned>(s_key, a - v0, e - v0, ring.lo);
+        j1 = fsi_lower_bound<unsigned>(
+            s_key, j0, e - v0, ring.lo + static_cast<int>(ring.span) + 1);
+      } else {
+        j0 = fsi_lower_bound(s_key, a - v0, e - v0, ring_centre - 1);
+        j1 = fsi_lower_bound(s_key, j0, e - v0, ring_centre + 2);
+      }
+      // pre-test, branch-free: phase 2's, the exact mask of a walk of the
+      // whole window (the run only leaves out senders it rejects); every
+      // family mask is the strict radius^2 - rij2 > 0
+      auto test = [&](int j) {
+        const T dx = s_x[j] - xi;
+        const T dy = s_y[j] - yi;
+        T rij2 = dx * dx + dy * dy;
+        if (!PLANAR) {
+          const T dz = s_z[j] - zi;
+          rij2 += dz * dz;
         }
-        const T dx = s_pos[3 * j] - xi;
-        const T dy = s_pos[3 * j + 1] - yi;
+        bool ok = (rij2 > T(0)) & (rij2 < reach2);
+        if (ROWS)
+          ok = ok & fsi_in_ring(s_key[j], ring) & (row0 + j != i) &
+               !(rij2 > p.support2);
+        else  // the key within one of the ring's centre
+          ok = ok & (static_cast<unsigned>(s_key[j] - ring_centre + 1) <= 2u);
+        return ok;
+      };
+      // the virial terms of one sender that passed
+      auto body = [&](int j) {
+        const T dx = s_x[j] - xi;
+        const T dy = s_y[j] - yi;
         T rij2 = dx * dx + dy * dy;
         T dz = 0;
         if (!PLANAR) {
-          dz = s_pos[3 * j + 2] - zi;
+          dz = s_z[j] - zi;
           rij2 += dz * dz;
         }
-        // every family mask is the strict radius^2 - rij2 > 0
-        if (!(rij2 > T(0)) || !(rij2 < reach2)) continue;
-        if (ROWS && rij2 > p.support2) continue;
         const T inv_r = fsi_rsqrt(rij2);
         const T rij = rij2 * inv_r;
         const T ex = dx * inv_r, ey = dy * inv_r;
@@ -205,8 +291,8 @@ __global__ void virial_sweep_kernel(const VirialParams<T> p) {
             omq_v = T(1) - rij * p.c[VR_INV_RADIUS_V];
           }
           if (m_v) {
-            T udote = (s_vel[3 * j] - vxi) * ex + (s_vel[3 * j + 1] - vyi) * ey;
-            if (!PLANAR) udote += (s_vel[3 * j + 2] - vzi) * ez;
+            T udote = (s_vx[j] - vxi) * ex + (s_vy[j] - vyi) * ey;
+            if (!PLANAR) udote += (s_vz[j] - vzi) * ez;
             T mu_h;
             if (ROWS) {
               const T den = visc_i + s_visc[j];
@@ -259,10 +345,19 @@ __global__ void virial_sweep_kernel(const VirialParams<T> p) {
           szy += fz * dy;
           szz += fz * dz;
         }
-      }
+      };
+#ifdef FSI_WALK_COUNT
+      walk.run(j0, j1);
+      walk.passed += fsi_walk_run(j0, j1, test, body);
+#else
+      fsi_walk_run(j0, j1, test, body);
+#endif
     }
   }
 
+#ifdef FSI_WALK_COUNT
+  walk.add_to(fsi_vr_counts);
+#endif
   const size_t n = p.n;
   p.out[i] = sxx;
   p.out[n + i] = sxy;
@@ -339,6 +434,9 @@ static int launch_virial(const void* pos, const void* vel, const void* key,
 
 static bool virial_args_ok(int n, int block, int n_off, int surface_tension,
                            const void* pa, const void* gc) {
+#ifdef FSI_WALK_COUNT
+  if (block % 32 != 0) return false;  // the counts reduce over whole warps
+#endif
   return block > 0 && block <= 1024 && n % block == 0 && n_off > 0 &&
          n_off <= FSI_MAX_OFFS &&
          !(surface_tension && (pa == nullptr || gc == nullptr));
@@ -406,3 +504,44 @@ extern "C" int fsi_virial_rows(int is_double, const void* pos, const void* vel,
 }
 
 extern "C" int fsi_virial_nconst() { return VR_NCONST; }
+
+// Resident blocks per SM of one virial instance at `block` threads (the
+// occupancy the launch reaches; registers and shared memory decide it), or
+// -1 where the query fails.
+template <typename T, bool ROWS>
+static int virial_occupancy(int planar, int surface_tension, int block) {
+  int blocks = -1;
+  cudaError_t err;
+  if (planar) {
+    err = surface_tension
+              ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                    &blocks, virial_sweep_kernel<T, true, true, ROWS>, block, 0)
+              : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                    &blocks, virial_sweep_kernel<T, true, false, ROWS>, block, 0);
+  } else {
+    err = surface_tension
+              ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                    &blocks, virial_sweep_kernel<T, false, true, ROWS>, block, 0)
+              : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                    &blocks, virial_sweep_kernel<T, false, false, ROWS>, block, 0);
+  }
+  return err == cudaSuccess ? blocks : -1;
+}
+
+extern "C" int fsi_virial_occupancy(int is_double, int rows, int planar,
+                                    int surface_tension, int block) {
+  if (is_double)
+    return rows ? virial_occupancy<double, true>(planar, surface_tension, block)
+                : virial_occupancy<double, false>(planar, surface_tension, block);
+  return rows ? virial_occupancy<float, true>(planar, surface_tension, block)
+              : virial_occupancy<float, false>(planar, surface_tension, block);
+}
+
+#ifdef FSI_WALK_COUNT
+// The checking build's counts of kernels 3 and 6 (see FsiWalkCount) of the
+// launches since the last call, into out[3]; then clears them.  Returns a
+// cudaError_t (0 = success).
+extern "C" int fsi_virial_counts(unsigned long long* out) {
+  return fsi_read_counts(fsi_vr_counts, out);
+}
+#endif

@@ -15,21 +15,19 @@
 //   coordinate within one of the receiver's in x and exactly (oy, oz) away
 //   in y (z) -- and the pair also needs prop_j >= 0 (pad rows carry the
 //   sentinel key but their position may lie inside the fluid), j != i and
-//   rij2 <= support^2.  The key is not read.
+//   rij2 <= support^2.  The pair rule reads no key: kernel 5 takes the key
+//   to find its runs only, and kernels 4 and 6, which have no key argument,
+//   find them from each sender's linear cell.
 //
 // Every family then applies its own radius test.
 //
 // Design: one thread block per receiver block, one thread per receiver with
-// its accumulators in registers.  Phases 1 and 2 walk only each receiver's
+// its accumulators in registers.  Every kernel walks only each receiver's
 // ring runs: the frame is sorted by key, so the senders in a receiver's ring
 // for one offset are one contiguous run of rows of the window.  A block
 // stages the windows of all its offsets together, in chunks, and each
 // receiver finds its run in each window's part of a chunk by binary search
-// on the staged keys (the ring-run walk below; see phase2_sweep.cu).  The
-// virial (phase 3) walks each window exactly from start to start + len in
-// tiles of FSI_TILE senders staged through shared memory (coalesced loads;
-// in the pair loop all threads read the same sender, a shared-memory
-// broadcast).
+// on the staged keys (the ring-run walk below; see phase2_sweep.cu).
 // Keys are compared as int32.  No atomics in the sums: each receiver sums
 // its own senders in a fixed order, so results are deterministic.  Compile
 // WITHOUT -use_fast_math: the viscosity term relies on 2/(inf + x) == 0 and
@@ -40,7 +38,6 @@
 
 #include <cuda_runtime.h>
 
-#define FSI_TILE 128
 #define FSI_MAX_OFFS 27
 #define FSI_TYPE_COUNT 6
 #define FSI_STRUCTURE_BEGIN 2
@@ -66,13 +63,6 @@ __device__ __forceinline__ int fsi_clip_type(int prop) {
 template <typename T>
 __device__ __forceinline__ T fsi_ratio(const T* table, int a, int b) {
   return (b >= 0 && b < FSI_TYPE_COUNT) ? table[a * FSI_TYPE_COUNT + b] : T(0);
-}
-
-// Cooperative copy of `count` contiguous elements into shared memory (the
-// virial's tiles).
-template <typename T>
-__device__ __forceinline__ void fsi_stage(T* dst, const T* src, int count) {
-  for (int i = threadIdx.x; i < count; i += blockDim.x) dst[i] = src[i];
 }
 
 // Cell coordinate of one position component, as the sort key computes it:
@@ -113,26 +103,6 @@ static void fsi_rows_fill(FsiRows<T>* g, int n_off, const int* offs_yz,
   }
 }
 
-// Stage the linear cell index (x fastest) of the senders of rows
-// [row0, row0 + cnt) (the virial's tiles): the cell coordinates are
-// computed once per sender when its tile is staged, not once per pair; a
-// pad row (prop < 0) gets INT_MIN, which lies in no ring.
-template <typename T>
-__device__ __forceinline__ void fsi_stage_lin(int* s_lin, const T* pos,
-                                              const int* prop, int row0,
-                                              int cnt, const FsiRows<T>& g) {
-  for (int j = threadIdx.x; j < cnt; j += blockDim.x) {
-    const T* q = pos + 3 * (size_t)(row0 + j);
-    const int cx = fsi_cell(q[0], g.dmin[0], g.cw[0], g.ncell[0]);
-    const int cy = fsi_cell(q[1], g.dmin[1], g.cw[1], g.ncell[1]);
-    const int cz =
-        g.three_d ? fsi_cell(q[2], g.dmin[2], g.cw[2], g.ncell[2]) : 0;
-    s_lin[j] = prop[row0 + j] >= 0
-                   ? cx + g.ncell[0] * (cy + g.ncell[1] * cz)
-                   : INT_MIN;
-  }
-}
-
 // The ring of row offset o for a receiver in cell (cx, cy, cz), as one range
 // of linear cells [lo, lo + span]: the JAX kernel's |cx_j - cx| <= 1,
 // cy_j - cy == oy and, in 3-D, cz_j - cz == oz, over cells that exist.
@@ -161,7 +131,7 @@ __device__ __forceinline__ bool fsi_in_ring(int lin, FsiRing r) {
 }
 
 // ---------------------------------------------------------------------------
-// The ring-run walk of phases 1 and 2 (phase1_sweep.cu, phase2_sweep.cu).
+// The ring-run walk (phase1_sweep.cu, phase2_sweep.cu, virial_sweep.cu).
 //
 // A block concatenates the windows of its offsets in offset order and
 // stages them in chunks of FsiChunk senders, one shared array a field
@@ -282,8 +252,8 @@ __device__ __forceinline__ unsigned fsi_walk_run(int j0, int j1, Test test,
 }
 
 // A checking build (-DFSI_WALK_COUNT; chip_smoke.py makes one beside the
-// library the solver loads) counts what the phase-1 and phase-2 kernels
-// walk, summed over their launches: [0] the senders the receivers
+// library the solver loads) counts what the window kernels walk, summed
+// over their launches: [0] the senders the receivers
 // pre-test, [1] the pre-test steps of the warps (for each run, the longest
 // of the 32 lanes'), [2] the senders that pass the pre-test.  The results
 // are the same as without the counts.  Blocks are whole warps there.

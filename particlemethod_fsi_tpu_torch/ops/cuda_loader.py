@@ -130,9 +130,18 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.fsi_phase2_rows.argtypes = [
         *lib.fsi_virial_rows.argtypes[:3], vp,  # is_double pos vel key
         *lib.fsi_virial_rows.argtypes[3:]]
-    for occupancy in (lib.fsi_phase1_occupancy, lib.fsi_phase2_occupancy):
-        occupancy.restype = ci
-        occupancy.argtypes = [ci, ci, ci, ci, ci]  # dbl rows planar st block
+    # the occupancy queries and, in a checking build (-DFSI_WALK_COUNT)
+    # only, the walk counts; a build of another tree for a comparison may
+    # lack some of them
+    for phase in ("phase1", "phase2", "virial"):
+        occupancy = getattr(lib, f"fsi_{phase}_occupancy", None)
+        if occupancy is not None:
+            occupancy.restype = ci
+            occupancy.argtypes = [ci, ci, ci, ci, ci]  # dbl rows planar st block
+        counts = getattr(lib, f"fsi_{phase}_counts", None)
+        if counts is not None:
+            counts.restype = ci
+            counts.argtypes = [vp]  # unsigned long long out[3], host memory
     lib.fsi_bf16_microbench.restype = ci
     lib.fsi_bf16_microbench.argtypes = [
         ci, vp, vp, vp, ci, ci, ci, ci, vp,  # bf16 x y partial b w reps splits stream

@@ -36,9 +36,9 @@ point of porting them separately:
   ``oz``) away in y (z) -- not the sort key;
 * **validity**: ``prop_j >= 0`` (pad rows carry the sentinel key but may sit
   inside the fluid), ``j != i``, ``rij2 > 0`` and ``rij2 <= support^2``
-  (the phase-1 and phase-2 kernels walk only each receiver's ring run,
-  which they find from the sorted linear cells -- phase 2 from the key,
-  phase 1 from the cell of each staged position -- and pads, whose key
+  (every kernel walks only each receiver's ring run, which it finds from
+  the sorted linear cells -- phase 2 from the key, phase 1 and the virial
+  from the cell of each staged position -- and pads, whose key
   ``num_cells`` lies in no ring, are out of every run before these tests);
 * **the neighbour count is always produced**, and ``mu_h = 2 mu_i mu_j /
   (mu_i + mu_j)`` (0 where the sum is not positive) comes from ``mu``
@@ -263,8 +263,7 @@ def _phase2_consts(ks: KernelSet, volume: float, two_dimensional: bool):
 def clip_runs(key, vlo, vhi, win_start, win_len, block: int):
     """Rows ``[lo, hi)`` whose key lies in ``[vlo, vhi]`` (``[N, n_off]``
     each, one row per receiver), clipped to the receiver's block window:
-    two lower bounds on the sorted key, as the phase-1 and phase-2 kernels
-    take them.
+    two lower bounds on the sorted key, as the window kernels take them.
     Returns ``(lo, hi)`` int64 ``[N, n_off]``."""
     n = key.shape[0]
     key64 = key.long()
@@ -281,14 +280,15 @@ def clip_runs(key, vlo, vhi, win_start, win_len, block: int):
 def ring_runs_rows(frame: SortedFrame, win_start, win_len, grid: CellGrid,
                    block: int):
     """Each receiver's ring run per row offset under the row-major rule, as
-    kernels 4 and 5 (``fsi_phase1_rows``, ``fsi_phase2_rows``) find it: the
+    kernels 4-6 (``fsi_phase1_rows``, ``fsi_phase2_rows``,
+    ``fsi_virial_rows``) find it: the
     ring of :func:`position_rule` is one range of linear cells (the
     receiver's cell row ``(cy + oy, cz + oz)``, x from ``cx - 1`` to
     ``cx + 1`` clipped to the grid; empty where that row lies outside it),
     and on a frame sorted from these positions the valid senders in it are
     the rows whose key lies in that range (a pad's key ``num_cells`` lies in
-    none; kernel 4 searches the linear cells of the staged positions, which
-    are these keys, with a pad's last).  Returns
+    none; kernels 4 and 6 search the linear cells of the staged positions,
+    which are these keys, with a pad's last).  Returns
     ``(lo, hi)`` int64 ``[N, n_off]``, clipped to the block's window.  Used
     by the tests and ``chip_smoke.py``; nothing on the main path calls it."""
     cells = cell_coords(frame.pos, grid).long()
@@ -946,7 +946,11 @@ def virial_rows_sweep(frame: SortedFrame, pp, pa, gc, mu, win_start, win_len,
     A CUDA frame goes through the hand-written kernel
     (``csrc/virial_sweep.cu``, ``fsi_virial_rows``, replacing the TPU
     ``pallas_pairwise._virial_kernel``) or the call raises; only a CPU frame
-    takes :func:`virial_rows_sweep_plain`."""
+    takes :func:`virial_rows_sweep_plain`.  The kernel finds each
+    receiver's ring run from the linear cells of the positions
+    (:func:`ring_runs_rows`), so the frame must be sorted from these
+    positions (:func:`packed_engine.sort_frame`; the diagnostics always
+    build such a frame)."""
     if frame.pos.is_cuda:
         return _launch_rows("virial_rows", 9, frame, pp, pa, gc, mu,
                             win_start, win_len, grid, ks, cfg, tables, volume,

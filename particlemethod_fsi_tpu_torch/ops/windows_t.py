@@ -36,13 +36,12 @@ incremented where the kernel is launched and nowhere else.
 Bound on an H100: by the roofline count (each input read once, each output
 written once, against the pair math of the true neighbour pairs only) all
 three sweeps are bound by bytes, some tens of bytes a particle.  The kernels
-do not reach that bound.  The virial (phase 3) tests every sender of a
-block's windows (an order of magnitude more candidates than neighbours), so
-its time goes to shared-memory reads and the ring and radius tests; phases
-1 and 2 walk only each receiver's ring run, a third of that
-(:func:`ring_runs` computes the runs for the tests).  See the notes in ``csrc/phase1_sweep.cu``,
-``csrc/phase2_sweep.cu`` and ``csrc/virial_sweep.cu``; the measured times
-stand in ``PERF.md``.
+do not reach that bound.  Each walks only each receiver's ring run, a third
+of its block's windows (:func:`ring_runs` computes the runs for the tests),
+and spends its time staging those windows and pre-testing the run's
+senders, some four times the neighbours.  See the notes in
+``csrc/phase1_sweep.cu``, ``csrc/phase2_sweep.cu`` and
+``csrc/virial_sweep.cu``; the measured times stand in ``PERF.md``.
 """
 
 from __future__ import annotations
@@ -247,8 +246,8 @@ def phase2_sweep(frame: SortedFrame, pp, pa, gc, invmu, win_start, win_len,
 
 def ring_runs(frame: SortedFrame, win_start, win_len, offs, block: int):
     """Each receiver's ring run per row offset under the key rule, as kernels
-    1 and 2 (``fsi_phase1_sweep``, ``fsi_phase2_sweep``) find it: the
-    senders whose key lies in
+    1-3 (``fsi_phase1_sweep``, ``fsi_phase2_sweep``, ``fsi_virial_sweep``)
+    find it: the senders whose key lies in
     ``key_i + off - 1 .. key_i + off + 1`` are one run of rows of the sorted
     frame.  Returns ``(lo, hi)`` int64 ``[N, n_off]``, clipped to the
     block's window.  Used by the tests and ``chip_smoke.py``; nothing on the

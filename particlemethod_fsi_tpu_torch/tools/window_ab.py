@@ -10,9 +10,10 @@ frame: the key rule's inputs for kernels 1-3 (``fsi_phase1_sweep``, also
 with the count, ``fsi_phase2_sweep``, ``fsi_virial_sweep``), the row rule's
 for kernels 4-6 (``fsi_phase1_rows``, ``fsi_phase2_rows``,
 ``fsi_virial_rows``).  Each kernel of each library runs on the same inputs;
-the outputs are compared bit for bit and the warm times (mean of ``REPS``
-back-to-back launches by CUDA events) are taken in turns, other, this, this,
-other, twice over.  With ``--sass`` it also compares the two libraries'
+the outputs are compared bit for bit and the times are taken in turns,
+other, this, this, other, twice over: warm (mean of ``REPS`` back-to-back
+launches by CUDA events) and cold (mean of ``COLD_REPS`` launches, each
+after a write over a buffer larger than L2).  With ``--sass`` it also compares the two libraries'
 machine code (``cuobjdump -sass``) function by function.  Prints one JSON
 line, after the card's name and power limit.
 
@@ -41,6 +42,8 @@ from particlemethod_fsi_tpu_torch.ops import windows_t as pwt
 N_SIDE = 1000  # the bench scene, 1,012,666 particles
 STEPS = 20     # steps run before the frame is taken
 REPS = 50      # back-to-back launches a warm timing
+COLD_REPS = 10  # launches a cold timing
+L2_FLUSH_BYTES = 256 * 2**20  # larger than the card's L2 (50 MB on an H100)
 
 
 def _time_ms(fn, reps: int) -> float:
@@ -54,6 +57,21 @@ def _time_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _time_ms_cold(fn, reps: int) -> float:
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    pairs = []
+    for _ in range(reps):
+        flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in pairs) / reps
 
 
 def _calls():
@@ -152,14 +170,18 @@ def main(argv=None) -> int:
         b = call()
         torch.cuda.synchronize()
         times = {"other": [], "this": []}
+        cold = {"other": [], "this": []}
         for who in ("other", "this", "this", "other") * 2:
             with cuda_loader.using(other if who == "other" else this):
                 times[who].append(_time_ms(call, REPS))
+                cold[who].append(_time_ms_cold(call, COLD_REPS))
         result[name] = dict(
             bit_equal=bool(torch.equal(a, b)),
             max_abs_diff=float((a.double() - b.double()).abs().max()),
             ms_other=times["other"], ms_this=times["this"],
-            speedup=(sum(times["other"]) / sum(times["this"])))
+            speedup=(sum(times["other"]) / sum(times["this"])),
+            cold_ms_other=cold["other"], cold_ms_this=cold["this"],
+            cold_speedup=(sum(cold["other"]) / sum(cold["this"])))
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60).stdout.strip()

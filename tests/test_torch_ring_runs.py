@@ -1,5 +1,6 @@
-"""The ring runs that the phase-1 and phase-2 kernels walk (kernels 1, 4, 2
-and 5, ``csrc/phase1_sweep.cu`` and ``csrc/phase2_sweep.cu``).  The frame is
+"""The ring runs that the window kernels walk (phase 1, kernels 1 and 4,
+``csrc/phase1_sweep.cu``; phase 2, kernels 2 and 5, ``csrc/phase2_sweep.cu``;
+the virial, kernels 3 and 6, ``csrc/virial_sweep.cu``).  The frame is
 sorted by key, so for one receiver
 and one row offset the senders of its block's window that pass the pair
 rule's ring test are one contiguous run of rows, found by two lower bounds
@@ -14,12 +15,13 @@ to the frame's end -- this file shows that
 * the run is exactly the set of window senders that pass the ring test
   (the row rule's ``j != i`` aside: the receiver's own row lies in its run,
   and the kernel tests it);
-* the plain phase-1 and phase-2 sweeps over the runs alone (one receiver a
-  block, its run its window) equal the plain sweeps over the block windows
-  in float64, rtol 1e-13 plus 1e-13 of the row's largest magnitude: the
-  same terms, summed in another order (the neighbour count exactly), also
-  with a sender at exactly the kernel radius of a receiver, which phase 1's
-  inclusive radius test takes;
+* the plain phase-1, phase-2 and virial sweeps over the runs alone (one
+  receiver a block, its run its window) equal the plain sweeps over the
+  block windows in float64, rtol 1e-13 plus 1e-13 of the row's largest
+  magnitude: the same terms, summed in another order (the neighbour count
+  exactly; a planar frame's zero virial rows stay zero), also with a sender
+  at exactly the kernel radius of a receiver, which phase 1's inclusive
+  radius test takes and the virial's strict one, phase 2's, drops;
 * every valid row's key is its ``cell_coords`` linear cell on a frame sorted
   from its positions, which is what makes the row rule's runs exact;
 * the runs are shorter than the windows: what the redesign gains.
@@ -253,12 +255,13 @@ def test_phase1_over_the_runs_alone(name, rule):
         _assert_phase1_equal(got, want, s, count, (name, rule, count))
 
 
-def _at_exactly(s: Setup, radius2: float):
+def _at_exactly(s: Setup, radius2: float, steps=(0, 1)):
     """The fresh ``mini_dam`` frame sorted again after one fluid particle is
     moved to exactly ``sqrt(radius2)`` from a fluid receiver, by the plain
     versions' own arithmetic (``dx*dx + dy*dy`` in float64 is ``radius2``
-    bit for bit); returns the new frame's Setup, the two rows, and the same
-    with that sender one step (the smallest) farther out."""
+    bit for bit); returns for each of ``steps`` the new frame's Setup and
+    the two rows, with that sender so many steps (the smallest that move
+    rij2) farther out: 0 is exactly the radius, -1 one step inside."""
     f = s.frame
     fluid = (f.prop == 1).nonzero()[:, 0]
     i, j = int(fluid[len(fluid) // 2]), int(fluid[0])
@@ -273,7 +276,7 @@ def _at_exactly(s: Setup, radius2: float):
                   == radius2), None)
     assert found is not None
     out = []
-    for step in (0, 1):
+    for step in steps:
         pos = f.pos.clone()
         pos[j, 0] = found[0] + step * 4 * np.spacing(found[0])
         pos[j, 1] = found[1]
@@ -308,6 +311,81 @@ def test_phase1_takes_a_sender_at_exactly_the_radius(rule):
         counts.append(int(want[pw.P1_COUNT][ri]))
     # at exactly the radius the pair counts; one step farther out it does not
     assert counts[0] == counts[1] + 1
+
+
+def _virial_windows_and_runs(s: Setup, rule: str, runs):
+    """The plain virial sums over the block windows and over the runs as
+    one-receiver windows, on the seeded phase-2 inputs."""
+    pp, pa, gc, visc = _phase2_inputs(s, rule)
+    kw = dict(volume=s.ks.spacing ** (2 if s.two_d else 3),
+              two_dimensional=s.two_d)
+    one = s.cfg._replace(block=1)
+    if rule == "key":
+        return (pwt.virial_sweep_plain(s.frame, pp, pa, gc, visc, *s.windows,
+                                       s.offs, s.ks, s.cfg, s.tables, **kw),
+                pwt.virial_sweep_plain(s.frame, pp, pa, gc, visc, *runs,
+                                       s.offs, s.ks, one, s.tables, **kw))
+    return (pw.virial_rows_sweep_plain(s.frame, pp, pa, gc, visc, *s.windows,
+                                       s.grid, s.ks, s.cfg, s.tables, **kw),
+            pw.virial_rows_sweep_plain(s.frame, pp, pa, gc, visc, *runs,
+                                       s.grid, s.ks, one, s.tables, **kw))
+
+
+def _assert_virial_equal(got, want, s: Setup, what):
+    """Every live component (a planar frame's four in-plane ones, else all
+    nine) within rtol 1e-13 plus 1e-13 of its largest magnitude; a planar
+    frame's five others zero in both."""
+    live = (0, 1, 3, 4) if s.cfg.planar else tuple(range(9))
+    for r in range(9):
+        if r in live:
+            scale = float(want[r].abs().max())
+            assert scale > 0, (what, r)
+            torch.testing.assert_close(got[r], want[r], rtol=1e-13,
+                                       atol=1e-13 * scale)
+        else:
+            assert not bool(want[r].any()) and not bool(got[r].any()), (
+                what, r)
+
+
+@pytest.mark.parametrize("name,rule", RULE_FRAMES)
+def test_virial_over_the_runs_alone(name, rule):
+    s = _setup(name)
+    lo, hi = _runs(s, rule)
+    runs = (lo.to(torch.int32).contiguous(),
+            (hi - lo).to(torch.int32).contiguous())
+    want, got = _virial_windows_and_runs(s, rule, runs)
+    _assert_virial_equal(got, want, s, (name, rule))
+
+
+@pytest.mark.parametrize("rule", ["key", "rows"])
+def test_virial_drops_a_sender_at_exactly_the_radius(rule):
+    """The virial's radius tests are strict (``radius^2 - rij2 > 0``, as
+    phase 2's; JAX ``pallas_windows_t.py``, ``pallas_pairwise.py``), and
+    the kernels' pre-test is ``rij2 < reach2``: a sender at exactly the
+    kernel radius of a receiver adds nothing to its virial (the receiver's
+    sums are bit for bit those with the sender one step farther out), one
+    step inside it does, and in every case the runs alone give the
+    windows' sums.  Both rules: uniform radii, so the reach is the kernel
+    radius, inside the row rule's support."""
+    s = _setup("mini_dam")
+    radius2 = s.ks.radius_p * s.ks.radius_p
+    assert s.cfg.uniform_radii and radius2 < s.grid.support ** 2
+    sums = []
+    for new, (ri, rj) in _at_exactly(s, radius2, steps=(-1, 0, 1)):
+        lo, hi = _runs(new, rule)
+        runs = (lo.to(torch.int32).contiguous(),
+                (hi - lo).to(torch.int32).contiguous())
+        # the sender lies in the receiver's run
+        assert any(int(lo[ri, o]) <= rj < int(hi[ri, o])
+                   for o in range(len(new.offs)))
+        want, got = _virial_windows_and_runs(new, rule, runs)
+        _assert_virial_equal(got, want, new, rule)
+        d = new.frame.pos[rj] - new.frame.pos[ri]
+        sums.append((float(d[0] * d[0] + d[1] * d[1]), want[:, ri], got[:, ri]))
+    (inside2, w_in, g_in), (exact2, w_at, g_at), (out2, w_out, g_out) = sums
+    assert inside2 < radius2 == exact2 < out2
+    assert torch.equal(w_at, w_out) and torch.equal(g_at, g_out)
+    assert not torch.equal(w_in, w_out) and not torch.equal(g_in, g_out)
 
 
 @pytest.mark.parametrize("name", [f for f in FRAMES if f != "c8_reused"])
