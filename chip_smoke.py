@@ -22,9 +22,11 @@ fault:
    the card -- (a) the ``double`` instances of kernels 1-6 on small seeded
    frames for every specialization branch, 2-D and 3-D, rtol 1e-12, and the
    probe's float32 and bf16 instances against its twin (bf16 1e-4 of the
-   row sum, and farther than that from the chain in float32); (b) the
-   ``float`` instances on the 1M-particle frame of each backend's main
-   path, where
+   row sum, and farther than that from the chain in float32), kernels 4-6
+   with every pad inside the fluid and in every window, and kernels 1-6 on
+   a ghost-extended frame of the Turek channel at 20 mm with every unfilled
+   ghost slot in every window; (b) the ``float`` instances on the
+   1M-particle frames of each backend's main path (both 1M scenes), where
    the kernel must lie as close to a float64 evaluation as the plain
    float32 version does; timed with inputs warm in L2 (back-to-back
    launches) and cold (L2 flushed before every launch), kernel 1 also with
@@ -35,22 +37,29 @@ fault:
    pairs inside the kernel's reach, for the virial phase 2's count on the
    same frame: the same pre-test); printed beside the window senders;
 4. a small coupled scene in float64 on both backends, card (kernels)
-   against CPU (plain versions), ten steps; and the gate case (6,724
-   particles, float64, 100 steps through ``load_case``) on both backends
-   against the reference binary's golden;
-5. the step path of each backend: the coupled dam break on an elastic bar
-   at ``n_side=1000`` (1,012,666 particles), float32, a warm-up chunk and
-   three timed chunks of 20 steps through ``Simulation.run_chunk``; finite
-   positions, launch counts equal to the steps taken, rebuild count,
-   ms/step, and where the step's time goes from CUDA events; the time of
-   the wrap check that every chunk makes on every step's state; then
-   (field-major) guarded against unguarded chunks, and the split of one
+   against CPU (plain versions), ten steps; the Turek channel at 5 mm
+   (44,000 particles, ghost-extended) the same way, and again in chunks of
+   1, 1, 3 and 5 steps with the ghost plan rebuilt by force before the
+   last, printing the flag's velocity gap after each; and the gate case
+   (6,724 particles, float64, 100 steps through ``load_case``) on both
+   backends against the reference binary's golden;
+5. the step path of each backend on two 1M scenes, the coupled dam break
+   on an elastic bar at ``n_side=1000`` (1,012,666 particles) and the
+   Turek channel at ``l0=1e-3`` (1,040,000 particles, ghost-extended),
+   float32, a warm-up chunk and three timed chunks of 20 steps through
+   ``Simulation.run_chunk`` with ``refresh_ghosts`` at each boundary;
+   finite positions, launch counts equal to the steps taken, rebuild
+   count, ms/step, and where the step's time goes from CUDA events; the
+   time of the extremes read each step makes; on the channel a ghost plan
+   rebuilt by force, timed, and a chunk after it; then (field-major, the
+   bench scene) guarded against unguarded chunks, and the split of one
    ``diagnostics`` call;
    then frames of 2^24 cells or more, which ``pallas_t`` hands to the
    row-major kernels;
 6. the command-line path of each backend: the same scene written as
    ``.data`` and ``.grid`` into a temporary directory, ``cli.main`` in
-   process on the card for one output interval with the watchdog on;
+   process on the card for one output interval with the watchdog on, and
+   the Turek channel the same way on ``pallas_t``;
    ``.prof`` and ``.vtk`` files with virial pressure, log and metrics
    written, read back and checked; launch counts of the backend's kernels;
    seconds of the writers and readers;
@@ -81,6 +90,10 @@ import numpy as np
 
 N_SIDE = 1000
 N_PARTICLES, N_SLOTS = 1_012_666, 1_012_736  # of the scene at N_SIDE
+TUREK_L0 = 1e-3
+# particles, slots and elastic substeps a step of each 1M scene
+SCENE_SIZES = {"bench": (N_PARTICLES, N_SLOTS, 1),
+               "turek": (1_040_000, 1_040_128, 5)}
 CHUNK = 20
 TIMED_CHUNKS = 3
 CLI_STEPS = 20  # steps of the command-line phase's one output interval
@@ -411,6 +424,96 @@ def check_pads_in_windows(device) -> float:
     return worst
 
 
+def check_ghosts_in_windows(device) -> dict:
+    """Kernels 1-6 (double) on a ghost-extended frame of the Turek channel
+    at l0 = 20 mm (4,000 particles, periodic in x and y), with seeded
+    phase-2 fields: every window run on to the frame's end, so that the
+    unfilled ghost slots (type -1 at position 0, which lies inside the
+    channel's corner, key ``num_cells``, sorted last) lie in every
+    receiver's window, and the ghost rows with a type (in the ghost cell
+    layer at ``domain_min - cell_width`` and past the top) in many rings.
+    Against the plain versions (rtol 1e-12 of the row scale), and the slot
+    rows against the same kernels on the exact windows.  Kernels 4 and 6
+    take their runs from the linear cells of the staged positions under the
+    frame (extended) grid, kernels 1-3 and 5 from the key."""
+    import torch
+    from particlemethod_fsi_tpu_torch.models import build_turek
+    from particlemethod_fsi_tpu_torch.ops import packed_engine as pk
+    from particlemethod_fsi_tpu_torch.ops import windows as pw
+    from particlemethod_fsi_tpu_torch.ops import windows_t as pwt
+
+    sim = build_turek(0.02, device=device, dtype="float64", pallas_block=32)
+    st = sim.state0
+    grid, ks, wcfg, tables = (sim._frame_grid, sim.kernels, sim._pcfg,
+                              sim.tables)
+    (pos, vel, prop), gsrc, over = sim._frame_inputs(st.pos, st.vel, st.prop)
+    frame = pk.sort_frame(pos, vel, prop, grid)
+    win = pw.compute_windows(frame, grid, wcfg)
+    n = frame.pos.shape[0]
+    ghost = frame.orig >= sim.n_pad
+    filled = int((ghost & (frame.prop >= 0)).sum())
+    unfilled = int((ghost & (frame.prop < 0)).sum())
+    if not (filled > 0 and unfilled > 0 and int(over) == 0):
+        fail(f"ghosts in windows: {filled} ghost rows, {unfilled} unfilled "
+             f"slots, overflow {int(over)}")
+    if not bool((frame.key[-unfilled:] == grid.num_cells).all()):
+        fail("ghosts in windows: unfilled slots do not sort last")
+    slots = ~ghost & (frame.prop >= 0)
+    to_end = (n - win[0]).to(torch.int32)
+    rng = np.random.default_rng(8)
+
+    def seeded(scale, *shape):
+        return torch.as_tensor(rng.normal(scale=scale, size=shape)).to(device)
+
+    mu = tables.shear_viscosity[torch.clamp(frame.prop, 0, 5).long()]
+    pp, pa, gc = seeded(1e2, n), seeded(1e1, n), seeded(1e-3, n, 3)
+    invmu = pwt.inverse_viscosity(mu)
+    offs, _ = pw.row_offsets(grid)
+    kw = dict(volume=sim.volume, two_dimensional=True)
+    sweeps = {
+        "phase1_sweep": lambda w, k: (
+            pwt.phase1_sweep if k else pwt.phase1_sweep_plain)(
+            frame, *w, offs, ks, wcfg, tables, support=grid.support,
+            count=True),
+        "phase2_sweep": lambda w, k: (
+            pwt.phase2_sweep if k else pwt.phase2_sweep_plain)(
+            frame, pp, pa, gc, invmu, *w, offs, ks, wcfg, tables, **kw),
+        "virial_sweep": lambda w, k: (
+            pwt.virial_sweep if k else pwt.virial_sweep_plain)(
+            frame, pp, pa, gc, invmu, *w, offs, ks, wcfg, tables, **kw),
+        "phase1_rows": lambda w, k: (
+            pw.phase1_rows_sweep if k else pw.phase1_rows_sweep_plain)(
+            frame, *w, grid, ks, wcfg, tables),
+        "phase2_rows": lambda w, k: (
+            pw.phase2_rows_sweep if k else pw.phase2_rows_sweep_plain)(
+            frame, pp, pa, gc, mu, *w, grid, ks, wcfg, tables, **kw),
+        "virial_rows": lambda w, k: (
+            pw.virial_rows_sweep if k else pw.virial_rows_sweep_plain)(
+            frame, pp, pa, gc, mu, *w, grid, ks, wcfg, tables, **kw),
+    }
+    worst = {}
+    for name, run in sweeps.items():
+        got = run((win[0], to_end), True)
+        want = run((win[0], to_end), False)
+        exact = run(win, True)
+        torch.cuda.synchronize()
+        worst[name] = 0.0
+        for r in range(want.shape[0]):
+            scale = float(want[r].abs().max())
+            for x, y, what in ((got[r], want[r], "plain version"),
+                               (got[r][slots], exact[r][slots],
+                                "exact windows")):
+                err = float((x - y).abs().max())
+                if not torch.allclose(x, y, rtol=1e-12, atol=1e-12 * scale):
+                    fail(f"{name} with ghost rows in its windows, row {r}: "
+                         f"{err:.3e} from the {what} (scale {scale:.3e})")
+                if scale > 0:
+                    worst[name] = max(worst[name], err / scale)
+    worst["frame"] = (f"{n} rows: {sim.n_pad} slots, {filled} ghost rows, "
+                      f"{unfilled} unfilled ghost slots")
+    return worst
+
+
 def check_virial_rows(kname, case, want, wcfg):
     for r in range(9):
         live = r in (0, 1, 3, 4) or not wcfg.planar
@@ -472,12 +575,17 @@ def main_frame(sim, state):
     operations bound)."""
     import torch
     from particlemethod_fsi_tpu_torch.ops import packed_engine as pk
+    from particlemethod_fsi_tpu_torch.ops.walls import periodic_wrap
     from particlemethod_fsi_tpu_torch.ops import windows as pw
     from particlemethod_fsi_tpu_torch.ops import windows_t as pwt
     from particlemethod_fsi_tpu_torch.ops.packed_engine import SortedFrame
 
     grid, ks, wcfg = sim._frame_grid, sim.kernels, sim._pcfg
-    frame = pk.sort_frame(state.pos, state.vel, state.prop, grid)
+    # as a step builds it: positions wrapped into the domain, extended with
+    # the ghost rows of a periodic scene
+    pos = periodic_wrap(state.pos, sim._dmin_t, sim._width_t)
+    (pos, vel, prop), _, _ = sim._frame_inputs(pos, state.vel, state.prop)
+    frame = pk.sort_frame(pos, vel, prop, grid)
     win = pw.compute_windows(frame, grid, wcfg)
     frame64 = SortedFrame(key=frame.key, pos=frame.pos.double(),
                           vel=frame.vel.double(), prop=frame.prop,
@@ -492,10 +600,11 @@ def main_frame(sim, state):
     return frame, frame64, win, tables64, true_pairs, table_bytes
 
 
-def check_and_time_main_frame(sim, state, counting) -> list:
-    """Kernels 1-3 in float32 on the field-major main path's own frame,
-    against their plain versions, with times and the roofline bound; what
-    kernels 1-3 walk, counted by the checking build ``counting``."""
+def check_and_time_main_frame(sim, state, counting, scene="bench") -> list:
+    """Kernels 1-3 in float32 on the field-major main path's own frame
+    (``scene``'s), against their plain versions, with times and the
+    roofline bound; what kernels 1-3 walk, counted by the checking build
+    ``counting``."""
     from particlemethod_fsi_tpu_torch.ops import windows as pw
     from particlemethod_fsi_tpu_torch.ops import windows_t as pwt
 
@@ -557,7 +666,8 @@ def check_and_time_main_frame(sim, state, counting) -> list:
     walk3, _ = ring_walk(
         "virial_sweep", lambda: pwt.virial_sweep(*a32, **kw), runs, rows[2],
         counting, passed_as=("kernel 2", passed2))
-    print(f"kernels at 1M (pallas_t frame): frame rows {n}, window senders "
+    print(f"kernels at 1M ({scene}, pallas_t frame): frame rows {n} "
+          f"({_frame_rows(sim, frame)}), window senders "
           f"per receiver {tested_pairs / n:.1f} (kernels 1-3 walk only their "
           f"ring runs); kernel 1: {walk1}; kernel 2: {walk}; kernel 3: "
           f"{walk3}; pairs inside the kernel "
@@ -568,9 +678,10 @@ def check_and_time_main_frame(sim, state, counting) -> list:
     return rows
 
 
-def check_and_time_rows_frame(sim, state, counting) -> list:
-    """Kernels 4-6 in float32 on the row-major main path's own frame,
-    against their plain versions, with times and the roofline bound;
+def check_and_time_rows_frame(sim, state, counting, scene="bench") -> list:
+    """Kernels 4-6 in float32 on the row-major main path's own frame
+    (``scene``'s), against their plain versions, with times and the
+    roofline bound;
     kernel 4's fields against kernel 1's on the same frame; and what
     kernels 4-6 walk, counted by the checking build ``counting``."""
     import torch
@@ -645,7 +756,8 @@ def check_and_time_rows_frame(sim, state, counting) -> list:
     walk6, _ = ring_walk(
         "virial_rows", lambda: pw.virial_rows_sweep(*a32, **kw), runs,
         rows[2], counting, passed_as=("kernel 5", passed5))
-    print(f"kernels at 1M (pallas frame): kernel 4's fields against kernel "
+    print(f"kernels at 1M ({scene}, pallas frame, {_frame_rows(sim, frame)}):"
+          f" kernel 4's fields against kernel "
           f"1's on the same frame: largest difference {diff4:.3e}, neighbour "
           f"counts equal; window senders per receiver "
           f"{float(win[1].double().sum()) * wcfg.block / n:.1f} (kernels 4-6 "
@@ -653,6 +765,15 @@ def check_and_time_rows_frame(sim, state, counting) -> list:
           f"kernel 6: {walk6}; pairs "
           f"inside the kernel radius per receiver {true_pairs / n:.2f}")
     return rows
+
+
+def _frame_rows(sim, frame) -> str:
+    """What a frame holds: slots, ghost rows with a type, unfilled ghost
+    slots."""
+    ghost = frame.orig >= sim.n_pad
+    filled = int((ghost & (frame.prop >= 0)).sum())
+    return (f"{sim.n_pad} slots, {filled} ghost rows, "
+            f"{int(ghost.sum()) - filled} unfilled ghost slots")
 
 
 def ring_walk(name, run, runs, row, counting, passed=None,
@@ -778,6 +899,94 @@ def check_small_scene(backend: str):
     return float(np.abs(a["pos"] - b["pos"]).max()), gpu.rebuilds
 
 
+def check_turek_small(backend: str):
+    """Ten steps of the Turek channel at l0 = 5 mm (44,000 particles, the
+    inlet re-imposed every step, a ghost-extended frame) in float64 on one
+    backend: the card against the CPU, at ``check_small_scene``'s bar --
+    but for the flag's velocities, held to rtol 1e-9 / atol 2e-12: five
+    stiff elastic substeps a step amplify the pair sums' rounding there,
+    and two correct float64 engines on the CPU (the JAX package's
+    ``packed`` and this port) lie 9.9e-13 m/s apart on those rows after ten
+    steps (``tests/test_torch_ghosts.py::test_turek_channel_matches_jax_packed``)."""
+    from particlemethod_fsi_tpu_torch.models import build_turek
+    from particlemethod_fsi_tpu_torch.state import to_numpy
+
+    kw = dict(dtype="float64", pallas_block=32, backend=backend)
+    gpu = build_turek(5e-3, **kw)
+    cpu = build_turek(5e-3, device="cpu", **kw)
+    if gpu._ghosts is None or gpu._ghosts != cpu._ghosts:
+        fail(f"turek 44k ({backend}): ghost plans differ")
+    a = to_numpy(gpu.run_chunk(gpu.state0, 10), gpu.n)
+    b = to_numpy(cpu.run_chunk(cpu.state0, 10), cpu.n)
+    if gpu.rebuilds != cpu.rebuilds:
+        fail(f"turek 44k ({backend}): rebuilds differ, card {gpu.rebuilds} "
+             f"cpu {cpu.rebuilds}")
+    flag = (a["prop"] >= 2) & (a["prop"] < 4)
+    try:
+        np.testing.assert_allclose(a["pos"], b["pos"], rtol=1e-12, atol=1e-15)
+        np.testing.assert_allclose(a["vel"][~flag], b["vel"][~flag],
+                                   rtol=1e-9, atol=1e-13)
+        np.testing.assert_allclose(a["vel"][flag], b["vel"][flag], rtol=1e-9,
+                                   atol=2e-12)
+    except AssertionError as e:
+        fail(f"turek 44k ({backend}): card and CPU disagree: {e}")
+    return (gpu.n, gpu._ghosts.total_capacity,
+            float(np.abs(a["pos"] - b["pos"]).max()),
+            float(np.abs(a["vel"][~flag] - b["vel"][~flag]).max()),
+            float(np.abs(a["vel"][flag] - b["vel"][flag]).max()), gpu.rebuilds)
+
+
+def check_turek_growth(backend: str) -> dict:
+    """The 44k channel again, card against CPU, float64, in chunks of 1, 1,
+    3 and 5 steps, with the ghost plan rebuilt by force on both before the
+    last chunk (the path a capacity overflow takes at the command line's
+    chunk boundary): the flag's position and velocity gaps after 1, 2, 5
+    and 10 steps.
+    After one step every row meets ``check_small_scene``'s bar, the flag
+    too, so the gap at ten steps is the pair sums' order, grown by the
+    flag's stiff substeps; positions and the other rows' velocities meet
+    that bar after every chunk, the flag's velocities 2e-12 after ten."""
+    from particlemethod_fsi_tpu_torch.models import build_turek
+    from particlemethod_fsi_tpu_torch.state import to_numpy
+
+    kw = dict(dtype="float64", pallas_block=32, backend=backend)
+    gpu = build_turek(5e-3, **kw)
+    cpu = build_turek(5e-3, device="cpu", **kw)
+    sg, sc = gpu.state0, cpu.state0
+    gaps, done = {}, 0
+    for upto in (1, 2, 5, 10):
+        if upto == 10:
+            if not (gpu.refresh_ghosts(sg, force=True)
+                    and cpu.refresh_ghosts(sc, force=True)):
+                fail(f"turek 44k ({backend}): a forced refresh did not "
+                     "rebuild the plan")
+            if gpu._ghosts != cpu._ghosts or gpu.ghost_refreshes != 1:
+                fail(f"turek 44k ({backend}): rebuilt plans differ")
+        sg = gpu.run_chunk(sg, upto - done)
+        sc = cpu.run_chunk(sc, upto - done)
+        done = upto
+        a, b = to_numpy(sg, gpu.n), to_numpy(sc, cpu.n)
+        flag = (a["prop"] >= 2) & (a["prop"] < 4)
+        gaps[upto] = (float(np.abs(a["pos"][flag] - b["pos"][flag]).max()),
+                      float(np.abs(a["vel"][flag] - b["vel"][flag]).max()))
+        try:
+            np.testing.assert_allclose(a["pos"], b["pos"], rtol=1e-12,
+                                       atol=1e-15)
+            rows = ~flag if upto > 1 else slice(None)
+            np.testing.assert_allclose(a["vel"][rows], b["vel"][rows],
+                                       rtol=1e-9, atol=1e-13)
+            np.testing.assert_allclose(a["vel"][flag], b["vel"][flag],
+                                       rtol=1e-9, atol=2e-12)
+        except AssertionError as e:
+            fail(f"turek 44k ({backend}), after {upto} steps in chunks: card "
+                 f"and CPU disagree: {e}")
+    if gpu.rebuilds != cpu.rebuilds or int(sg.ghost_overflow) != 0:
+        fail(f"turek 44k ({backend}), in chunks: rebuilds card "
+             f"{gpu.rebuilds} cpu {cpu.rebuilds}, ghost overflow "
+             f"{int(sg.ghost_overflow)}")
+    return gaps
+
+
 # ---------------------------------------------------------------------------
 # phase 5: the main path
 # ---------------------------------------------------------------------------
@@ -801,33 +1010,52 @@ def expect_counts(backend: str, steps: int, dumps: int) -> dict:
     return want
 
 
-def run_main_path(backend: str):
-    """The bench scene at n_side=1000 on one backend: a warm-up chunk and
-    three timed chunks through ``run_chunk``, the launch counts of those 80
-    steps, ms/step and its breakdown by section."""
+def build_scene(scene: str, backend: str):
+    """A 1M scene on the card, float32, block 64: the bench scene at
+    ``n_side=1000`` or the Turek channel at ``l0=1e-3``."""
+    from particlemethod_fsi_tpu_torch.models import build_case, build_turek
+
+    if scene == "bench":
+        return build_case(N_SIDE, backend=backend)
+    return build_turek(TUREK_L0, backend=backend)
+
+
+def run_path(backend: str, scene: str = "bench"):
+    """A 1M scene on one backend: a warm-up chunk and three timed chunks
+    through ``run_chunk``, with ``refresh_ghosts`` at every chunk boundary
+    (timed apart), the launch counts of those 80 steps, ms/step and its
+    breakdown by section, and the host time of the extremes read each step
+    makes."""
     import torch
-    from particlemethod_fsi_tpu_torch.models import build_case
+    from particlemethod_fsi_tpu_torch.ops import ghosts as gh
     from particlemethod_fsi_tpu_torch.ops import windows as pw
 
     t0 = time.time()
-    sim = build_case(N_SIDE, backend=backend)
+    sim = build_scene(scene, backend)
     torch.cuda.synchronize()
     setup_s = time.time() - t0
-    if sim.n != N_PARTICLES or sim.n_pad != N_SLOTS:
-        fail(f"main path: {sim.n} particles in {sim.n_pad} slots")
+    n_want, slots_want, substeps = SCENE_SIZES[scene]
+    if sim.n != n_want or sim.n_pad != slots_want:
+        fail(f"{scene} path: {sim.n} particles in {sim.n_pad} slots")
     flags = sim._pcfg
     if (flags.surface_tension or not flags.uniform_ratio or not flags.planar
             or not flags.uniform_radii or flags.block != 64
-            or sim.dtype != torch.float32 or sim.cfg.substeps != 1
+            or sim.dtype != torch.float32 or sim.cfg.substeps != substeps
             or sim._backend != backend):
-        fail(f"main path: unexpected specialization {flags} on "
+        fail(f"{scene} path: unexpected specialization {flags} on "
              f"{sim._backend}")
+    ghosts = sim._ghosts.total_capacity if sim._ghosts is not None else 0
+    if (scene == "turek") != (ghosts > 0):
+        fail(f"{scene} path: {ghosts} ghost rows")
 
     pw.reset_launch_counts()
     state = sim.run_chunk(sim.state0, CHUNK)  # warm-up
     torch.cuda.synchronize()
-    chunk_ms = []
+    chunk_ms, refresh_ms = [], []
     for c in range(TIMED_CHUNKS):
+        t0 = time.time()
+        sim.refresh_ghosts(state)
+        refresh_ms.append((time.time() - t0) * 1e3)
         if c == TIMED_CHUNKS - 1:
             sim.profile_events = []
         torch.cuda.synchronize()
@@ -838,68 +1066,123 @@ def run_main_path(backend: str):
     events, sim.profile_events = sim.profile_events, None
     counts = dict(pw.launch_counts)
     steps = CHUNK * (TIMED_CHUNKS + 1)
-    # the wrap check that every chunk makes on the state it starts from and
-    # on each state a step returns (a reduction a state, one read a chunk)
-    from particlemethod_fsi_tpu_torch.solver import valid_extremes
-
+    # the extremes each step reads (with the C8 predicate on pallas_t, on
+    # their own on pallas): a reduction and a read of six numbers
     invalid = state.prop < 0
     torch.cuda.synchronize()
     t0 = time.time()
-    for _ in range(TIMED_CHUNKS):
-        sim._refuse_wrap([valid_extremes(state.pos, invalid)
-                          for _ in range(CHUNK + 1)])
-    wrap_ms = (time.time() - t0) * 1e3 / TIMED_CHUNKS
+    for _ in range(CHUNK):
+        sim._read(gh.valid_extremes(state.pos, invalid))
+    read_ms = (time.time() - t0) * 1e3 / CHUNK
 
     if not bool(torch.isfinite(state.pos).all()):
-        fail("main path: positions are not all finite")
+        fail(f"{scene} path: positions are not all finite")
     if tuple(state.pos.shape) != (sim.n_pad, 3):
-        fail(f"main path: positions have shape {tuple(state.pos.shape)}")
+        fail(f"{scene} path: positions have shape {tuple(state.pos.shape)}")
     if counts != expect_counts(backend, steps, 0):
-        fail(f"main path ({backend}): launch counts {counts} after {steps} "
+        fail(f"{scene} path ({backend}): launch counts {counts} after {steps} "
              f"steps")
     # the field-major backend reuses its frame under the C8 margin; the
     # row-major one rebuilds every step
     if backend == "pallas_t" and not 0 < sim.rebuilds < steps:
-        fail(f"main path: {sim.rebuilds} rebuilds in {steps} steps")
+        fail(f"{scene} path: {sim.rebuilds} rebuilds in {steps} steps")
     if backend == "pallas" and sim.rebuilds != steps:
-        fail(f"main path (pallas): {sim.rebuilds} rebuilds in {steps} steps")
+        fail(f"{scene} path (pallas): {sim.rebuilds} rebuilds in {steps} "
+             f"steps")
     if abs(float(state.time) - steps * sim.cfg.dt) > 1e-3 * steps * sim.cfg.dt:
-        fail(f"main path: time {float(state.time)} after {steps} steps")
+        fail(f"{scene} path: time {float(state.time)} after {steps} steps")
+    if int(state.ghost_overflow) != 0 or sim.ghost_refreshes != 0:
+        fail(f"{scene} path: ghost overflow {int(state.ghost_overflow)}, "
+             f"{sim.ghost_refreshes} plan rebuilds")
     speed = float(state.vel[: sim.n].norm(dim=1).max())
-    fell = float((sim.state0.pos[: sim.n, 1] - state.pos[: sim.n, 1]).max())
-    # free fall over 80 steps of 1e-4 s: g t^2 / 2 = 3.1e-4 m, v = 0.078 m/s
-    if not (0 < speed < 5.0 and 0 < fell < 5e-3):
-        fail(f"main path: max speed {speed}, largest drop {fell}")
+    if scene == "bench":
+        fell = float((sim.state0.pos[: sim.n, 1]
+                      - state.pos[: sim.n, 1]).max())
+        # free fall over 80 steps of 1e-4 s: g t^2 / 2 = 3.1e-4 m, v = 0.078
+        # m/s
+        if not (0 < speed < 5.0 and 0 < fell < 5e-3):
+            fail(f"bench path: max speed {speed}, largest drop {fell}")
+    else:
+        # the channel flows at 1 m/s on the centre line, 1.5 m/s at the
+        # inlet: the fluid's mean x velocity stays near 2/3 of the centre
+        fluid = (state.prop == 1) | (state.prop == 0)
+        mean_vx = float(state.vel[fluid, 0].mean())
+        if not (0 < speed < 5.0 and 0.3 < mean_vx < 1.0):
+            fail(f"turek path: max speed {speed}, mean fluid vx {mean_vx}")
 
     # where the step's time goes: intervals between the marks of each step
     spans: dict = {}
     for (_, a), (name, b) in zip(events, events[1:]):
         if name != "begin":
             spans[name] = spans.get(name, 0.0) + a.elapsed_time(b)
-    label = {"frame": ("wrap, rebuild test, sort and windows"
+    label = {"read": ("inlet, wrap, extremes, rebuild test and the read"
+                      if backend == "pallas_t"
+                      else "inlet, wrap, extremes and the read"),
+             "ghost rows": "ghost rows (extracted on a rebuild, refreshed "
+                           "from their sources on a skip)",
+             "frame": ("sort and windows (rebuilds) or the cached gather"
                        if backend == "pallas_t"
-                       else "wrap, sort and windows (every step)"),
-             "phase1": "phase 1 + EOS", "phase2": "phase 2",
+                       else "sort and windows (every step)"),
+             "phase1": "phase 1 + EOS",
+             "ghost fields": "ghost rows' fields from their sources",
+             "phase2": "phase 2",
              "integrate": "gravity, unsort, kick, convection",
              "solid": "elastic solid"}
     breakdown = {label[k]: v / CHUNK for k, v in spans.items()}
     ms = float(np.median(chunk_ms))
-    print(f"main path ({backend}): {sim.n} particles ({sim.n_pad} slots), "
-          f"float32, set-up {setup_s:.1f} s, {steps} steps, rebuilds "
-          f"{sim.rebuilds}, launches {json.dumps(counts)}, ms/step by chunk "
-          f"{[round(m, 3) for m in chunk_ms]}, median {ms:.3f} ms/step, "
-          f"{sim.n / ms * 1e3:.4g} particle-steps/s, max speed {speed:.4f} "
-          f"m/s, peak device memory "
-          f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB; the wrap "
-          f"check {wrap_ms:.4f} ms a chunk of {CHUNK} (host clock): "
-          f"{wrap_ms / CHUNK:.4f} ms/step")
-    print(f"main path ({backend}), ms/step by section (CUDA events, last "
+    print(f"{scene} path ({backend}): {sim.n} particles ({sim.n_pad} slots, "
+          f"{ghosts} ghost rows), float32, set-up {setup_s:.1f} s, {steps} "
+          f"steps, rebuilds {sim.rebuilds}, ghost plan rebuilds "
+          f"{sim.ghost_refreshes}, launches {json.dumps(counts)}, ms/step by "
+          f"chunk {[round(m, 3) for m in chunk_ms]}, median {ms:.3f} "
+          f"ms/step, {sim.n / ms * 1e3:.4g} particle-steps/s, max speed "
+          f"{speed:.4f} m/s, peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB; "
+          f"refresh_ghosts at the chunk boundaries (host clock) "
+          f"{[round(m, 3) for m in refresh_ms]} ms; the extremes read "
+          f"{read_ms:.4f} ms/step (host clock)")
+    print(f"{scene} path ({backend}), ms/step by section (CUDA events, last "
           "chunk): " + json.dumps({k: round(v, 4) for k, v in breakdown.items()})
           + f"; sum {sum(breakdown.values()):.3f} of {chunk_ms[-1]:.3f}")
-    return sim, state, counts
+    summary = dict(ms_per_step=ms, chunk_ms=chunk_ms, ghost_rows=ghosts,
+                   rebuilds=sim.rebuilds, refreshes=sim.ghost_refreshes,
+                   refresh_ms=refresh_ms, extremes_read_ms=read_ms,
+                   breakdown=breakdown)
+    if scene == "turek":
+        state, summary["plan_rebuild"] = time_plan_rebuild(sim, state)
+    return sim, state, counts, summary
 
 
-def time_diagnostics(sim, state, backend: str) -> dict:
+def time_plan_rebuild(sim, state):
+    """A ghost plan rebuilt by force on the 1M channel (host clock: the
+    test's read, the positions' copy to the host, the plan, the shift rows),
+    then one chunk on the new plan (ms/step, the C8 cache rebuilt at its
+    first step), held to the channel's sanity bars."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.time()
+    if not sim.refresh_ghosts(state, force=True) or sim.ghost_refreshes != 1:
+        fail("turek path: a forced refresh did not rebuild the plan")
+    rebuild_ms = (time.time() - t0) * 1e3
+    t0 = time.time()
+    state = sim.run_chunk(state, CHUNK)
+    torch.cuda.synchronize()
+    after_ms = (time.time() - t0) * 1e3 / CHUNK
+    fluid = (state.prop == 1) | (state.prop == 0)
+    mean_vx = float(state.vel[fluid, 0].mean())
+    if (not bool(torch.isfinite(state.pos).all())
+            or int(state.ghost_overflow) != 0 or not 0.3 < mean_vx < 1.0):
+        fail(f"turek path after a plan rebuild: overflow "
+             f"{int(state.ghost_overflow)}, mean fluid vx {mean_vx}")
+    print(f"turek path ({sim._backend}): the ghost plan rebuilt by force "
+          f"in {rebuild_ms:.3f} ms (host clock; {sim._ghosts.total_capacity} "
+          f"ghost rows now), the next chunk {after_ms:.3f} ms/step")
+    return state, dict(ms=rebuild_ms, ghost_rows=sim._ghosts.total_capacity,
+                       next_chunk_ms_per_step=after_ms)
+
+
+def time_diagnostics(sim, state, backend: str, scene: str = "bench") -> dict:
     """The split of one ``diagnostics`` call at 1M, after a warm-up call;
     the launch counts of that one call."""
     import torch
@@ -915,7 +1198,8 @@ def time_diagnostics(sim, state, backend: str) -> dict:
     counts = dict(pw.launch_counts)
     events, sim.profile_events = sim.profile_events, None
     if counts != expect_counts(backend, 0, 1):
-        fail(f"diagnostics at 1M ({backend}): launch counts {counts}")
+        fail(f"diagnostics at 1M ({scene}, {backend}): launch counts "
+             f"{counts}")
     spans = {name: a.elapsed_time(b)
              for (_, a), (name, b) in zip(events, events[1:])}
     host = {k: v * 1e3 for k, v in sim.last_diagnostics_seconds.items()}
@@ -923,7 +1207,8 @@ def time_diagnostics(sim, state, backend: str) -> dict:
     if not (np.isfinite(d["virial_pressure"]).all()
             and float(np.abs(d["virial_pressure"]).max()) > 0):
         fail("diagnostics at 1M: virial pressure is zero or not finite")
-    print(f"diagnostics at 1M ({backend}), ms by section of one call (CUDA "
+    print(f"diagnostics at 1M ({scene}, {backend}), ms by section of one "
+          "call (CUDA "
           "events): " + json.dumps({k: round(v, 3) for k, v in spans.items()})
           + f"; device sum {device_ms:.3f}; host clock: device work and "
           f"copies to the host {host['device_and_copies']:.1f}, numpy "
@@ -1059,10 +1344,10 @@ def _vtk_block(data: bytes, header: bytes, n: int, skip_lines: int):
     return np.loadtxt(io.BytesIO(data[at:at + 64 * n]), max_rows=n, ndmin=2)
 
 
-def run_cli_path(tmp: str, backend: str, cli_steps: int):
-    """Write the 1M bench scene as files, run the command line on them on
-    the card with ``--backend`` for one output interval of ``cli_steps``
-    steps, and check what it wrote."""
+def run_cli_path(tmp: str, backend: str, cli_steps: int, scene="bench"):
+    """Write a 1M scene (the bench scene or the Turek channel) as files,
+    run the command line on them on the card with ``--backend`` for one
+    output interval of ``cli_steps`` steps, and check what it wrote."""
     import torch
     from particlemethod_fsi_tpu_torch import cli
     from particlemethod_fsi_tpu_torch.io import native
@@ -1070,25 +1355,31 @@ def run_cli_path(tmp: str, backend: str, cli_steps: int):
     from particlemethod_fsi_tpu_torch.io.grid_file import (
         GridData, read_grid_file, write_grid_file)
     from particlemethod_fsi_tpu_torch.io.vtk_writer import write_vtk_file
-    from particlemethod_fsi_tpu_torch.models import bench_config, bench_grid
+    from particlemethod_fsi_tpu_torch.models import (
+        bench_config, bench_grid, turek_config, turek_grid)
     from particlemethod_fsi_tpu_torch.ops import windows as pw
     from particlemethod_fsi_tpu_torch.solver import Simulation, load_case
     from particlemethod_fsi_tpu_torch.state import to_numpy
 
-    tmp = os.path.join(tmp, backend)
+    tmp = os.path.join(tmp, f"{scene}-{backend}")
     os.makedirs(tmp)
-    j = lambda name: os.path.join(tmp, name)  # noqa: E731
-    interval = cli_steps * 1e-4
-    want_cfg = bench_config(backend=backend).replace(
-        output_interval=interval, vtk_output_interval=interval,
-        end_time=interval)
-    grid0 = bench_grid(N_SIDE)
+    j = lambda name: os.path.join(tmp, name.replace("bench", scene))  # noqa: E731
+    if scene == "bench":
+        cfg0, grid0, module, margin = (bench_config(backend=backend),
+                                       bench_grid(N_SIDE), "dam", "0.5")
+    else:
+        cfg0, grid0, module, margin = (turek_config(TUREK_L0, backend=backend),
+                                       turek_grid(TUREK_L0), "turek_hron",
+                                       "1.0")
+    interval = cli_steps * cfg0.dt
+    want_cfg = cfg0.replace(output_interval=interval,
+                            vtk_output_interval=interval, end_time=interval)
     write_data_file(want_cfg, j("bench.data"))
     t0 = time.time()
     write_grid_file(grid0, j("bench.grid"))
     write_s = time.time() - t0
     t0 = time.time()
-    cfg, grid = load_case(j("bench.data"), j("bench.grid"), scene="dam",
+    cfg, grid = load_case(j("bench.data"), j("bench.grid"), scene=module,
                           numerics=want_cfg.numerics)
     read_s = time.time() - t0
     if cfg != want_cfg:
@@ -1104,8 +1395,8 @@ def run_cli_path(tmp: str, backend: str, cli_steps: int):
     grid_mb = os.path.getsize(j("bench.grid")) / 1e6
 
     argv = [j("bench.data"), j("bench.grid"), j("bench%03d.prof"),
-            j("bench%03d.vtk"), j("bench.log"), "4", "--scene", "dam",
-            "--backend", backend, "--rebuild-margin", "0.5", "--dtype",
+            j("bench%03d.vtk"), j("bench.log"), "4", "--scene", module,
+            "--backend", backend, "--rebuild-margin", margin, "--dtype",
             "float32", "--metrics", j("metrics.jsonl")]
     pw.reset_launch_counts()
     t0 = time.time()
@@ -1122,7 +1413,8 @@ def run_cli_path(tmp: str, backend: str, cli_steps: int):
         if not os.path.getsize(j(name)) > 0:
             fail(f"cli path: {name} is missing or empty")
     log = open(j("bench.log")).read()
-    if "platform: cuda" not in log or "WATCHDOG" in log or "GUARD" in log:
+    if ("platform: cuda" not in log or "WATCHDOG" in log or "GUARD" in log
+            or "ghost spec" in log):
         fail(f"cli path: unexpected log:\n{log}")
     metrics = [json.loads(ln) for ln in open(j("metrics.jsonl"))]
     steps = sum(m.get("chunk", 0) for m in metrics)
@@ -1197,7 +1489,9 @@ def run_cli_path(tmp: str, backend: str, cli_steps: int):
         fail("cli path: the final .vtk differs from the diagnostics written again")
     buckets = {ln.split(":")[0]: float(ln.split(":")[1].split()[0])
                for ln in log.splitlines() if "[sec]" in ln}
-    print(f"cli path ({backend}): {n} particles, {steps} steps, return code 0 in "
+    ghosts = sim._ghosts.total_capacity if sim._ghosts is not None else 0
+    print(f"cli path ({scene}, {backend}): {n} particles, {ghosts} ghost "
+          f"rows, {steps} steps, return code 0 in "
           f"{cli_s:.1f} s; launches {json.dumps(counts)}; writer "
           f"{writer} ({native.writer_name()}); .grid {grid_mb:.0f} MB written "
           f"in {write_s:.2f} s and read by load_case in {read_s:.2f} s; "
@@ -1357,6 +1651,10 @@ def main() -> int:
     pads_err = check_pads_in_windows(device)
     print(f"kernels 4-6 with every pad inside the fluid and in every window "
           f"(double): ok; largest error over row scale {pads_err:.3e}")
+    ghost_err = check_ghosts_in_windows(device)
+    print("kernels 1-6 on a ghost-extended frame with every unfilled ghost "
+          "slot in every window (double, Turek channel at 20 mm): ok; "
+          "largest error over row scale: " + json.dumps(ghost_err))
     probe_err = check_microbench()
     print("probe (kernel 7) against its twin, 64 trips: ok; largest error "
           "over the largest row sum: " + json.dumps(probe_err))
@@ -1369,8 +1667,23 @@ def main() -> int:
         print(f"small coupled scene ({backend}; 880 particles, float64, 10 "
               f"steps): card against CPU ok, max |pos| difference "
               f"{pos_err:.3e}, rebuilds {rebuilds}")
+    for backend in ("pallas_t", "pallas"):
+        n_tk, g_tk, pos_err, vel_err, flag_err, rebuilds = check_turek_small(
+            backend)
+        print(f"turek channel ({backend}; {n_tk} particles, {g_tk} ghost "
+              f"rows, float64, 10 steps): card against CPU ok, max |pos| "
+              f"difference {pos_err:.3e}, |vel| {vel_err:.3e} (the flag's "
+              f"{flag_err:.3e}), rebuilds {rebuilds}")
+        gaps = check_turek_growth(backend)
+        print(f"turek channel ({backend}; float64, chunks of 1, 1, 3, 5 "
+              f"steps, the ghost plan rebuilt by force before the last): "
+              f"card against CPU ok; the flag's max |pos| and |vel| "
+              f"differences after steps 1, 2, 5, 10: "
+              + ", ".join(f"{p:.3e} m and {v:.3e} m/s"
+                          for p, v in gaps.values()))
 
     tmp = tempfile.mkdtemp(prefix="fsi_smoke_")
+    paths, launches = {}, {}
     try:
         for backend in ("pallas_t", "pallas"):
             n_gate, gate_err = check_gate_golden(tmp, backend)
@@ -1379,20 +1692,29 @@ def main() -> int:
                   f"golden: max position difference {gate_err:.3e} m (bar "
                   f"2.0e-6)")
 
-        # the field-major backend: kernels 1-3
-        sim, state, counts = run_main_path("pallas_t")
-        rows = check_and_time_main_frame(sim, state, counting)
-        state = time_guarded(sim, state)
-        diag_counts = time_diagnostics(sim, state, "pallas_t")
-        del sim, state
-        torch.cuda.empty_cache()
-
-        # the row-major backend: kernels 4-6
-        sim, state, rows_counts = run_main_path("pallas")
-        rows += check_and_time_rows_frame(sim, state, counting)
-        rows_diag_counts = time_diagnostics(sim, state, "pallas")
-        del sim, state
-        torch.cuda.empty_cache()
+        # each 1M scene on each backend: the field-major backend runs
+        # kernels 1-3, the row-major one kernels 4-6; each path is driven
+        # with the counts at 0 and read just after, and so is each
+        # diagnostics call
+        rows = {"bench": [], "turek": []}
+        for scene in ("bench", "turek"):
+            for backend in ("pallas_t", "pallas"):
+                sim, state, counts, paths[f"{scene}/{backend}"] = run_path(
+                    backend, scene)
+                if backend == "pallas_t":
+                    rows[scene] += check_and_time_main_frame(
+                        sim, state, counting, scene)
+                    if scene == "bench":
+                        state = time_guarded(sim, state)
+                else:
+                    rows[scene] += check_and_time_rows_frame(
+                        sim, state, counting, scene)
+                diag = time_diagnostics(sim, state, backend, scene)
+                for k in counts:
+                    if counts[k] or diag[k]:
+                        launches[(scene, k)] = counts[k] or diag[k]
+                del sim, state
+                torch.cuda.empty_cache()
         cells, _ = check_huge_frame_route()
         print(f"frames of 2^24 cells or more: {cells} cells, pallas_t "
               f"resolved to the row-major kernels, 3 steps bit-equal to "
@@ -1402,21 +1724,31 @@ def main() -> int:
         torch.cuda.empty_cache()
         cli_counts.update({k: v for k, v in run_cli_path(
             tmp, "pallas", CLI_ROWS_STEPS).items() if k.endswith("_rows")})
+        torch.cuda.empty_cache()
+        turek_cli_counts = run_cli_path(tmp, "pallas_t", CLI_STEPS, "turek")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    rows.append(time_microbench())
+    probe_row = time_microbench()
     # launches: of each backend's step path for the step kernels, of its
-    # diagnostics call for the virial; the command-line path's counts stand
-    # beside them
-    for row in rows:
+    # diagnostics call for the virial; the Turek channel's numbers beside
+    # the bench scene's; the command-line paths' counts beside them
+    turek = {row["name"]: row for row in rows["turek"]}
+    for row in rows["bench"]:
         name = row["name"]
-        if name == "bf16_microbench":
-            continue
-        path = counts if name.endswith("_sweep") else rows_counts
-        diag = diag_counts if name.endswith("_sweep") else rows_diag_counts
-        row["launches"] = path[name] or diag[name]
+        row["launches"] = launches[("bench", name)]
         row["launches_cli_path"] = cli_counts[name]
+        tk = turek[name]
+        row["turek"] = {k: tk[k] for k in (
+            "ms", "cold_l2_ms", "plain_ms", "bound_ms", "bound_by",
+            "max_abs_err", "roofline_share", "bound_bytes",
+            "ring_senders_tested_per_receiver", "senders_passed_per_receiver")
+            if k in tk}
+        row["turek"]["launches"] = launches[("turek", name)]
+        if name.endswith("_sweep"):
+            row["turek"]["launches_cli_path"] = turek_cli_counts[name]
+    rows = rows["bench"] + [probe_row]
 
+    print(json.dumps({"paths": paths}))
     print(card_line)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -11,7 +11,7 @@ yet.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -59,15 +59,18 @@ def sort_frame(pos, vel, prop, grid: CellGrid) -> SortedFrame:
                        prop=prop[sorig], orig=sorig)
 
 
-def unsort(frame: SortedFrame, *arrays):
-    """Return sorted-order tensors to original slot order.  ``frame.orig`` is
-    a permutation of the slots (there are no ghost rows in this port yet), so
-    the inverse is one scatter: ``out[orig] = x``."""
+def unsort(frame: SortedFrame, *arrays, n: Optional[int] = None):
+    """Return sorted-order tensors to original slot order, keeping the
+    first ``n`` slots (all by default).  ``frame.orig`` is a permutation of
+    the frame's rows, so the inverse is one scatter, ``out[orig] = x``; on a
+    ghost-extended frame the ghost rows (``orig >= n_pad``) land past the
+    slots and ``n = n_pad`` drops them, as the JAX solver's
+    ``force[: self.n_pad]`` does."""
     out = []
     for a in arrays:
         if a.shape[0] != frame.orig.shape[0]:
             raise ValueError("unsort: array length differs from the frame's")
         o = torch.empty_like(a)
         o[frame.orig] = a
-        out.append(o)
+        out.append(o if n is None else o[:n])
     return out

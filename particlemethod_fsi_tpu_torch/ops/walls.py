@@ -2,10 +2,10 @@
 
 Counterpart of ``particlemethod_fsi_tpu/ops/walls.py``.  Ported:
 :func:`wall_rotation_matrices`, :func:`wall_tables` (enough for the solver's
-static-wall test) and :func:`periodic_wrap`.  Prescribed wall motion
-(``apply_wall_motion``, with the ``Rolling`` variant) and the scripted
-velocity profiles (Bar first mode, Turek-Hron inlet) are not ported yet; the
-solver raises for scenes that need them.
+static-wall test), :func:`periodic_wrap` and :func:`turek_inlet_velocity`.
+Prescribed wall motion (``apply_wall_motion``, with the ``Rolling`` variant)
+and the Bar first-mode velocity profile are not ported yet; the solver
+raises for scenes that need them.
 """
 
 from __future__ import annotations
@@ -15,7 +15,7 @@ import math
 import numpy as np
 import torch
 
-from particlemethod_fsi_tpu_torch.config import TYPE_COUNT, CaseConfig
+from particlemethod_fsi_tpu_torch.config import TYPE_COUNT, CaseConfig, SceneConfig
 
 
 def wall_rotation_matrices(cfg: CaseConfig) -> np.ndarray:
@@ -57,3 +57,21 @@ def periodic_wrap(pos: torch.Tensor, domain_min, domain_width) -> torch.Tensor:
     w = torch.as_tensor(domain_width, dtype=pos.dtype, device=pos.device)
     rel = pos - dmin
     return rel - w * torch.floor(rel / w) + dmin
+
+
+def turek_inlet_velocity(pos, vel, prop, time, scene: SceneConfig):
+    """Turek-Hron parabolic inlet re-imposed every step on fluid particles
+    (src/main.cpp:419-438): 1.5x-peak profile at x <= 0.01, plain profile at
+    x > 1.5 while t < turek_outlet_until."""
+    fluid = (prop >= 0) & (prop < 2)
+    h = scene.turek_ymax - scene.turek_ymin
+    uy = pos[:, 1] - scene.turek_ymin
+    u_inlet = (1.5 * 4.0 * scene.turek_umax / (h * h)) * uy * (h - uy)
+    u_outlet = (4.0 * scene.turek_umax / (h * h)) * uy * (h - uy)
+    zero = torch.zeros_like(u_inlet)
+    inlet = fluid & (pos[:, 0] <= 0.01)
+    outlet = fluid & (pos[:, 0] > 1.5) & (time < scene.turek_outlet_until)
+    vel = torch.where(inlet[:, None], torch.stack([u_inlet, zero, zero], 1),
+                      vel)
+    return torch.where(outlet[:, None],
+                       torch.stack([u_outlet, zero, zero], 1), vel)

@@ -38,8 +38,7 @@ class ParticleState(NamedTuple):
     vel: torch.Tensor  # [N,3]
     wall_center: torch.Tensor  # [TYPE_COUNT,3] rigid-wall centers
     time: torch.Tensor  # scalar
-    # kept for parity with the JAX state; always 0 until periodic ghosts are
-    # ported
+    # ghost-strip capacity overflow, max-accumulated over a chunk's steps
     ghost_overflow: torch.Tensor  # scalar int32
 
     @property

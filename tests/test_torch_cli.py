@@ -22,6 +22,8 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_common import torch_one_thread  # noqa: F401 (autouse)
+
 from particlemethod_fsi_tpu import cli as jcli
 from particlemethod_fsi_tpu_torch import cli as pcli
 from particlemethod_fsi_tpu_torch.generator import generate_case

@@ -9,6 +9,7 @@ import os
 import sys
 
 import numpy as np
+import pytest
 import torch
 
 from particlemethod_fsi_tpu.state import to_numpy as jax_to_numpy
@@ -18,6 +19,19 @@ from particlemethod_fsi_tpu_torch.io.grid_file import GridData as PortGridData
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 F64 = torch.float64
+
+
+@pytest.fixture(autouse=True, scope="module")
+def torch_one_thread():
+    """PyTorch on one CPU thread while a test module runs (imported into
+    each ``test_torch_*`` module that runs the port).  The lane runs six
+    workers on eight cores; the port's steps are many small ops, and on
+    eight threads a worker each they spend their time waiting for each
+    other's threads."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def fields_np(obj) -> dict:

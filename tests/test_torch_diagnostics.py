@@ -24,11 +24,12 @@ from test_torch_common import (
     port_grid,
     port_state,
 )
+from test_torch_common import torch_one_thread  # noqa: F401 (autouse)
 
 from particlemethod_fsi_tpu.config import SCENES
 from particlemethod_fsi_tpu.solver import Simulation as JaxSimulation
 from particlemethod_fsi_tpu_torch import convert
-from particlemethod_fsi_tpu_torch.solver import Simulation, wrapped_axes_device
+from particlemethod_fsi_tpu_torch.solver import Simulation
 from particlemethod_fsi_tpu_torch.state import to_numpy
 
 
@@ -153,19 +154,6 @@ def test_guarded_chunk_stops_at_the_first_bad_state_like_jax(margin):
         return float(psim._top_speed2(s))
 
     assert not psim._healthy(top2(state))
-    # the bad step is counted, and nothing before it was bad.  By then the
-    # particles have flown across the domain, so healthy states before it
-    # have pairs across the periodic boundary: the guarded chunk of the
-    # done - 1 healthy steps refuses the first of them, and single steps
-    # (unchecked) reach the last
-    prev, wrapped = psim.state0, []
-    for _ in range(done - 1):
-        prev = psim.step(prev)
-        wrapped.append(any(wrapped_axes_device(
-            psim.cell_grid, prev.pos, prev.prop >= 0, psim._frame_support,
-            psim.cfg.two_dimensional)))
-    assert psim._healthy(top2(prev))
-    first = wrapped.index(True) + 1
-    with pytest.raises(NotImplementedError,
-                       match=f"periodic boundary .* after {first} steps"):
-        psim.run_chunk_guarded(psim.state0, done - 1)
+    # the bad step is counted, and nothing before it was bad
+    prev, d2, ok2 = psim.run_chunk_guarded(psim.state0, done - 1)
+    assert (d2, ok2) == (done - 1, True) and psim._healthy(top2(prev))

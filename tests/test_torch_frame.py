@@ -11,6 +11,7 @@ import torch
 
 from cases import dam_like_config, mini_dam, mini_fsi
 from test_torch_common import WINDOW_KW, bench_sims, port_cfg, port_grid, port_state
+from test_torch_common import torch_one_thread  # noqa: F401 (autouse)
 
 from particlemethod_fsi_tpu.config import SCENES
 from particlemethod_fsi_tpu.ops import pallas_pairwise as jpw

@@ -1,19 +1,23 @@
 """The PyTorch port against goldens produced by the reference binary
 (provenance in ``goldens/README.md``): the coupled gate case and the
-pure-fluid dam case after 100 steps, loaded through ``load_case`` from the
-committed ``.data`` and a grid generated from the committed ``.boid``,
-float64 on the CPU (the plain versions of the kernels).
+pure-fluid dam case after 100 steps, the Rolling1 module (clamped structure
+block) after 100 and the Hydroelastic module (water column on a clamped
+slab) after 200, loaded through ``load_case`` from the committed ``.data``
+and a grid generated from the committed ``.boid``, float64 on the CPU (the
+plain versions of the kernels).
 
 Tolerances are those the JAX package holds itself to against the same files
-(``tests/test_golden.py``): positions within 2.0e-6 m, dam velocities within
-5.0e-4 m/s -- just above the ``.prof`` ``%e`` six-digit floor plus the
-measured drift."""
+(``tests/test_golden.py``): positions within 2.0e-6 m (Hydroelastic 5.0e-5
+m, its structure rows 1.0e-5 m), dam velocities within 5.0e-4 m/s -- just
+above the ``.prof`` ``%e`` six-digit floor plus the measured drift."""
 
 import gzip
 import os
 
 import numpy as np
 import pytest
+
+from test_torch_common import torch_one_thread  # noqa: F401 (autouse)
 
 from particlemethod_fsi_tpu_torch.config import NumericsConfig
 from particlemethod_fsi_tpu_torch.generator import generate_case
@@ -32,16 +36,18 @@ def load_golden(path):
     return t, rows
 
 
-def run_steps(tmp_path, case_dir, name, gold_dir, n_steps):
+def run_steps(tmp_path, case_dir, name, gold_dir, n_steps, scene="dam",
+              data=None):
     """The grid comes from the case's ``.boid`` through the port's generator
     command (written under ``tmp_path``), the physics from the golden's own
-    ``.data``."""
+    ``.data`` (``data``, else ``<name>.data``) and the scene module
+    ``scene``."""
     os.symlink(os.path.join(REPO, "cases", case_dir, name + ".boid"),
                tmp_path / (name + ".boid"))
     generate_case(str(tmp_path / name))
     cfg, grid = load_case(
-        os.path.join(GOLD, gold_dir, name + ".data"),
-        tmp_path / (name + ".grid"), scene="dam",
+        os.path.join(GOLD, gold_dir, data or name + ".data"),
+        tmp_path / (name + ".grid"), scene=scene,
         numerics=NumericsConfig(dtype="float64", backend="pallas_t",
                                 pallas_block=32))
     sim = Simulation(cfg, grid, device="cpu")
@@ -73,3 +79,34 @@ def test_dam_golden_100_steps(tmp_path):
     dv = np.abs(out["vel"][:, :2] - g[:, 7:9]).max()
     assert dp < 2.0e-6, f"position diff {dp:.3e} m vs golden"
     assert dv < 5.0e-4, f"velocity diff {dv:.3e} m/s vs golden"
+
+
+def test_rolling1_golden_100_steps(tmp_path):
+    """Rolling1 module (clamped structure block, y0 < 0.003) against the
+    reference binary built with ``#define Rolling1`` after 100 steps."""
+    sim, out = run_steps(tmp_path, "rolling", "rolling", "rolling1", 100,
+                         scene="rolling1", data="r1f.data")
+    assert sim.has_structure and sim.cfg.scene.name == "rolling1"
+    t, g = load_golden(os.path.join(GOLD, "rolling1", "r1f_0100.prof.gz"))
+    assert t == pytest.approx(0.01) and out["time"] == pytest.approx(0.01)
+    np.testing.assert_array_equal(out["prop"], g[:, 0].astype(np.int32))
+    dp = np.abs(out["pos"][:, :2] - g[:, 1:3]).max()
+    assert dp < 2.0e-6, f"position diff {dp:.3e} m vs golden"
+
+
+def test_hydroelastic_golden_200_steps(tmp_path):
+    """Hydroelastic module (x0 < 0.01 or x0 > 1.99 clamp): a water column
+    on a clamped elastic slab against the reference binary built with
+    ``#define Hydroelastic`` after 200 steps."""
+    sim, out = run_steps(tmp_path, "hydroelastic", "hydro", "hydro", 200,
+                         scene="hydroelastic")
+    assert sim.has_structure and sim.cfg.scene.name == "hydroelastic"
+    t, g = load_golden(os.path.join(GOLD, "hydro", "hydro0200.prof.gz"))
+    assert t == pytest.approx(0.01) and out["time"] == pytest.approx(0.01)
+    np.testing.assert_array_equal(out["prop"], g[:, 0].astype(np.int32))
+    dp = np.abs(out["pos"][:, :2] - g[:, 1:3]).max()
+    assert dp < 5.0e-5, f"position diff {dp:.3e} m vs golden"
+    typ = g[:, 0].astype(int)
+    struct = (typ >= 2) & (typ < 4)
+    ds = np.abs(out["pos"][struct, :2] - g[struct, 1:3]).max()
+    assert ds < 1.0e-5, f"structure position diff {ds:.3e} m vs golden"

@@ -59,6 +59,13 @@ def test_port_runs_with_jax_unimportable():
         assert bool(torch.isfinite(out.pos).all()) and rows.rebuilds == 2
         d = rows.diagnostics(out)
         assert abs(d["virial_pressure"]).max() > 0
+        # a periodic scene: the Turek channel on a ghost-extended frame
+        from particlemethod_fsi_tpu_torch.models import build_turek
+        from particlemethod_fsi_tpu_torch.ops import ghosts
+        tk = build_turek(5e-3, device="cpu", dtype="float64", pallas_block=32)
+        assert tk._ghosts is not None and ghosts.spec_axes(tk._ghosts)[0]
+        out = tk.run_chunk(tk.state0, 1)
+        assert bool(torch.isfinite(out.pos).all()) and tk.rebuilds == 1
         x, y = bf16_microbench.inputs(device="cpu")
         acc = bf16_microbench.run(x[:4], y[:4], torch.bfloat16, 2)
         assert acc.shape == (4, 1) and bool(torch.isfinite(acc).all())
@@ -90,7 +97,8 @@ def test_command_line_runs_with_jax_unimportable(tmp_path):
         for want in ("cli", "io.data_file", "io.native", "io.vtk_writer",
                      "io.grid_file", "utils.logging", "utils.watchdog",
                      "utils.checkpoint", "generator", "convert",
-                     "ops.windows", "ops.windows_t", "tools.bf16_microbench"):
+                     "ops.windows", "ops.windows_t", "ops.ghosts",
+                     "models.turek", "tools.bf16_microbench"):
             assert port.__name__ + "." + want in names, want
         from particlemethod_fsi_tpu_torch import cli
         from particlemethod_fsi_tpu_torch.io import write_data_file, write_grid_file

@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from test_torch_common import port_cfg
+from test_torch_common import torch_one_thread  # noqa: F401 (autouse)
 
 from particlemethod_fsi_tpu import generator as jgen
 from particlemethod_fsi_tpu.io import data_file as jdata

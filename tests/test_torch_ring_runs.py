@@ -35,6 +35,7 @@ import torch
 
 from cases import dam_like_config, mini_fsi
 from test_torch_common import WINDOW_KW, port_cfg, port_grid, port_statics
+from test_torch_common import torch_one_thread  # noqa: F401 (autouse)
 from test_torch_windows_rows import _case
 from test_torch_windows_t import _jax_sim
 

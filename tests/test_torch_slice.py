@@ -12,6 +12,7 @@ import torch
 
 from cases import dam_like_config, mini_fsi
 from test_torch_common import WINDOW_KW, bench_sims, port_cfg, port_grid
+from test_torch_common import torch_one_thread  # noqa: F401 (autouse)
 
 from particlemethod_fsi_tpu.config import SCENES
 from particlemethod_fsi_tpu.solver import Simulation as JaxSimulation
@@ -92,36 +93,24 @@ def test_step_rebuilds_every_time_and_keeps_its_input():
     assert psim.rebuilds == 2 * first and psim.last_chunk_rebuilds == first
 
 
-@pytest.mark.parametrize("what", ["rolling", "turek_inlet", "bar_first_mode",
-                                  "moving_wall", "periodic", "3d", "backend"])
+@pytest.mark.parametrize("what", ["rolling", "bar_first_mode", "moving_wall",
+                                  "3d", "backend"])
 def test_unported_paths_raise_by_name(what):
     """What later slices port raises NotImplementedError at setup: never a
     silent other path."""
     from cases import config_3d, mini_dam, mini_dam_3d
     from particlemethod_fsi_tpu.config import WallMotion
-    from particlemethod_fsi_tpu.generator import (
-        BoidScene, Primitive, generate_grid)
 
     grid = mini_dam()
     cfg = dam_like_config(**WINDOW_KW)
     if what == "rolling":
         cfg = cfg.replace(scene=SCENES["rolling"])
-    elif what == "turek_inlet":
-        cfg = cfg.replace(scene=SCENES["turek_hron"])
     elif what == "bar_first_mode":
         cfg = cfg.replace(scene=SCENES["bar"])
     elif what == "moving_wall":
         walls = list(cfg.walls)
         walls[4] = WallMotion(velocity=(0.1, 0.0, 0.0))
         cfg = cfg.replace(walls=tuple(walls))
-    elif what == "periodic":
-        n_side = 12
-        grid = generate_grid(BoidScene(
-            particle_distance=1e-3, lower_domain=(0.0, 0.0, 0.0),
-            upper_domain=(n_side * 1e-3, n_side * 1e-3, 1e-3),
-            primitives=[Primitive("Cuboid", spacing=1e-3, type=0,
-                                  lower=(0, 0, 0),
-                                  upper=(n_side * 1e-3, n_side * 1e-3, 1e-3))]))
     elif what == "3d":
         grid, cfg = mini_dam_3d(), config_3d(**WINDOW_KW)
     elif what == "backend":

@@ -26,6 +26,7 @@ import pytest
 from cases import dam_like_config, mini_dam, mini_fsi
 from test_torch_cli import _argv, _columns_close, gate  # noqa: F401 (fixture)
 from test_torch_common import bench_sims, port_cfg, port_grid, port_state
+from test_torch_common import torch_one_thread  # noqa: F401 (autouse)
 from test_torch_diagnostics import _scales
 
 from particlemethod_fsi_tpu.config import SCENES

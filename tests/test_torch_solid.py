@@ -10,6 +10,7 @@ import torch
 
 from cases import L0, dam_like_config, mini_bar, mini_fsi
 from test_torch_common import WINDOW_KW, fields_np, port_cfg, port_grid
+from test_torch_common import torch_one_thread  # noqa: F401 (autouse)
 
 from particlemethod_fsi_tpu.config import SCENES
 from particlemethod_fsi_tpu.ops import solid as jsl

@@ -16,6 +16,7 @@ import torch
 
 from cases import dam_like_config, mini_dam, mini_fsi
 from test_torch_common import WINDOW_KW, port_frame, port_statics
+from test_torch_common import torch_one_thread  # noqa: F401 (autouse)
 from test_torch_windows_t import _EXPECT, _jax_sim
 
 from particlemethod_fsi_tpu.config import SCENES

@@ -22,6 +22,7 @@ import torch
 
 from cases import dam_like_config, mini_dam, mini_fsi
 from test_torch_common import jitter, port_frame, port_statics
+from test_torch_common import torch_one_thread  # noqa: F401 (autouse)
 from test_torch_windows_t import _close, _field_scales, _jax_sim
 
 from particlemethod_fsi_tpu.config import SCENES

@@ -17,6 +17,7 @@ from test_torch_common import (
     port_frame,
     port_statics,
 )
+from test_torch_common import torch_one_thread  # noqa: F401 (autouse)
 
 from particlemethod_fsi_tpu.ops import packed_engine as jpk
 from particlemethod_fsi_tpu.ops import pallas_pairwise as jpw
