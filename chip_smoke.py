@@ -21,8 +21,10 @@ fault:
 3. kernels: each hand-written kernel against its plain PyTorch version on
    the card -- (a) the ``double`` instances of kernels 1-6 on small seeded
    frames for every specialization branch, 2-D and 3-D, rtol 1e-12, and the
-   probe's float32 and bf16 instances against its twin (bf16 1e-4 of the
-   row sum, and farther than that from the chain in float32), kernels 4-6
+   probe's float32 and bf16 instances against its twin at 1, 7, 64, 512 and
+   513 trips (bf16 1e-4 of the row sum, and farther than that from the
+   chain in float32; one launch a call, bit-equal twice; every element's
+   term equal to the twin's), kernels 4-6
    with every pad inside the fluid and in every window, and kernels 1-6 on
    a ghost-extended frame of the Turek channel at 20 mm with every unfilled
    ghost slot in every window; (b) the ``float`` instances on the
@@ -63,7 +65,10 @@ fault:
    ``.prof`` and ``.vtk`` files with virial pressure, log and metrics
    written, read back and checked; launch counts of the backend's kernels;
    seconds of the writers and readers;
-7. the probe: float32 and bf16 element throughput of kernel 7.
+7. the probe: float32 and bf16 element throughput of kernel 7 (the slope
+   between two trip counts), one launch of 512 trips timed alone, the trip
+   loop's machine instructions per element-trip, the SM clock, and the
+   bound by instruction issue beside the published float32 bound.
 
 ``python3 chip_smoke.py --kernels-only`` stops after phase 3a (build, register
 counts, double instances, the probe's check): the short first run of a new
@@ -141,6 +146,8 @@ PHASE2_ROWS_BYTES_PER_PARTICLE = 7 * 4 + 2 * 4
 VIRIAL_ROWS_BYTES_PER_PARTICLE = 7 * 4 + 4 * 4
 # larger than the card's L2 (50 MB on an H100): writing it evicts the inputs
 L2_FLUSH_BYTES = 256 * 2**20
+# clocks of the device spin (torch.cuda._sleep) that leads a timing: ~10 ms
+LEAD_CYCLES = 20_000_000
 
 
 def fail(msg: str):
@@ -148,14 +155,20 @@ def fail(msg: str):
     sys.exit(1)
 
 
-def time_ms(fn, reps: int) -> float:
-    """Mean milliseconds of ``fn()`` over ``reps`` calls, by CUDA events."""
+def time_ms(fn, reps: int, lead: bool = False) -> float:
+    """Mean milliseconds of ``fn()`` over ``reps`` calls, by CUDA events.
+    With ``lead`` a ~10 ms spin on the device precedes the first event, so
+    that the host has enqueued the calls before the device reaches them:
+    the device's time alone, for a kernel shorter than the host's time a
+    call."""
     import torch
 
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if lead:
+        torch.cuda._sleep(LEAD_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
@@ -164,15 +177,20 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def time_ms_cold(fn, reps: int) -> float:
+def time_ms_cold(fn, reps: int, lead: bool = False) -> float:
     """Mean milliseconds of ``fn()`` over ``reps`` calls, each after a write
     over a buffer larger than L2, so that the inputs come from device
-    memory.  Only ``fn()`` lies between a call's two events."""
+    memory.  Only ``fn()`` lies between a call's two events.  With ``lead``
+    a ~1 ms spin on the device precedes each flush, so that the host has
+    enqueued the call before the device reaches it (a kernel shorter than
+    the host's time a call)."""
     import torch
 
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     pairs = []
     for _ in range(reps):
+        if lead:
+            torch.cuda._sleep(LEAD_CYCLES // 10)
         flush.zero_()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -1508,38 +1526,80 @@ def run_cli_path(tmp: str, backend: str, cli_steps: int, scene="bench"):
 # ---------------------------------------------------------------------------
 
 
+PROBE_TRIPS = (1, 7, 64, 512, 513)  # trip counts the probe is checked at
+PROBE_TERM_TRIPS = (*range(17), 511, 4095)  # trips its terms are checked at
+PROBE_TIMED = 50  # back-to-back launches of a warm timing
+PROBE_CURVE = (0, 1, 64, 256, 512, 4096)  # trips the kernel is timed at
+# instructions an SM issues a clock: four warp schedulers, one warp each
+LANES_ISSUED_PER_SM_CLOCK = 128
+
+
 def check_microbench() -> dict:
-    """Kernel 7 against its plain twin on the card, 64 trips over the
-    probe's tile, both rounding each operation in the same place: float32
-    rtol 1e-5 and bf16 1e-4 of the largest row sum (the rows summed in
-    another order; in bf16 also an rsqrt that rounds to the other bf16
-    neighbour).  The bf16 instance must also stand farther than its bar from
-    the chain in float32 on the float32 tile and on the tile rounded to bf16
-    (a chain rounded once at its end, or not at all, lies 4e-3 to 8e-3 of the
-    row sum from the twin): a kernel that does not round each operation in
-    bf16 fails here."""
+    """Kernel 7 against its plain twin on the card, over the probe's tile at
+    each of ``PROBE_TRIPS`` trips (a trip lost or counted twice at the edge
+    of a block's range shows), both rounding each operation in the same
+    place: float32 rtol 1e-5 and bf16 1e-4 of the largest row sum (the rows
+    summed in another order; in bf16 also an rsqrt that rounds to the other
+    bf16 neighbour).  Each call is one launch, and two launches give
+    bit-equal rows.  Each element's term (the kernel's chain, element by
+    element) equals the twin's at the trips ``PROBE_TERM_TRIPS``, on the
+    probe's tile and on a tile whose separations reach every branch of the
+    chain (r2 <= 0.1, <= 0.25, 1 - q <= 0).  The bf16 instance must also
+    stand farther than its bar from the chain in float32 on the float32 tile
+    and on the tile rounded to bf16 (a chain rounded once at its end, or not
+    at all, lies 4e-3 to 8e-3 of the row sum from the twin): a kernel that
+    does not round each operation in bf16 fails here."""
     import torch
     from particlemethod_fsi_tpu_torch.tools import bf16_microbench as mb
 
-    x, y = mb.inputs()
+    g = torch.Generator().manual_seed(1)
+    branchy = (torch.rand((mb.B, mb.W), generator=g) * 4,
+               torch.rand((mb.B, mb.W), generator=g) * -4)
     errs = {}
     for dtype, bar in ((torch.float32, 1e-5), (torch.bfloat16, 1e-4)):
-        got = mb.run(x, y, dtype, 64)
-        want = mb.run_plain(x, y, dtype, 64)
-        torch.cuda.synchronize()
-        scale = float(want.abs().max())
-        err = float((got - want).abs().max())
         name = str(dtype).split(".")[1]
-        if not (scale > 0 and torch.allclose(got, want, rtol=bar,
-                                             atol=bar * scale)):
-            fail(f"bf16_microbench {name}: max abs err {err:.3e} against "
-                 f"scale {scale:.3e}")
-        errs[name] = err / scale
+        x, y = mb.inputs(dtype=dtype)
+        worst = 0.0
+        for reps in PROBE_TRIPS:
+            before = mb.launch_counts["bf16_microbench"]
+            got = mb.run(x, y, dtype, reps)
+            if mb.launch_counts["bf16_microbench"] != before + 1:
+                fail(f"bf16_microbench {name}: a call counted "
+                     f"{mb.launch_counts['bf16_microbench'] - before} "
+                     "launches, not 1")
+            again = mb.run(x, y, dtype, reps)
+            want = mb.run_plain(x, y, dtype, reps)
+            torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                fail(f"bf16_microbench {name}: two launches of {reps} trips "
+                     "differ")
+            scale = float(want.abs().max())
+            err = float((got - want).abs().max())
+            if not (scale > 0 and torch.allclose(got, want, rtol=bar,
+                                                 atol=bar * scale)):
+                fail(f"bf16_microbench {name}, {reps} trips: max abs err "
+                     f"{err:.3e} against scale {scale:.3e}")
+            worst = max(worst, err / scale)
+            if reps == 64 and dtype == torch.bfloat16:
+                got64, scale64 = got, scale
+        errs[name] = worst
+        checked = 0
+        for tile in ((x, y), tuple(t.to(x.device, dtype) for t in branchy)):
+            for trip in PROBE_TERM_TRIPS:
+                kt, pt = mb.terms(*tile, trip), mb.terms_plain(*tile, trip)
+                differ = int((kt != pt).sum())
+                if differ:
+                    fail(f"bf16_microbench {name}: {differ} terms of trip "
+                         f"{trip} differ from the twin's (max "
+                         f"{float((kt - pt).abs().max()):.3e})")
+                checked += kt.numel()
+        errs[f"{name}_terms_equal"] = checked
+    x, y = mb.inputs()
     for form, (xf, yf) in (("float32", (x, y)),
                            ("rounded_once", (x.bfloat16().float(),
                                              y.bfloat16().float()))):
         other = mb.run_plain(xf, yf, torch.float32, 64)
-        dist = float((got - other).abs().max()) / scale
+        dist = float((got64 - other).abs().max()) / scale64
         if not dist > 1e-4:
             fail(f"bf16_microbench bfloat16: within {dist:.3e} of the chain "
                  f"in float32 ({form}), inside its bar: it does not round "
@@ -1548,35 +1608,113 @@ def check_microbench() -> dict:
     return errs
 
 
+def sm_clock_mhz(fn, seconds: float = 2.0) -> list:
+    """The SM clock (MHz) as ``nvidia-smi --query-gpu=clocks.sm`` reads it
+    every 100 ms while ``fn()`` runs back to back for ``seconds``."""
+    import torch
+
+    smi = subprocess.Popen(
+        ["nvidia-smi", "--id=0", "--query-gpu=clocks.sm",
+         "--format=csv,noheader,nounits", "-lms", "100"],
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    try:
+        end = time.time() + seconds
+        while time.time() < end:
+            for _ in range(200):
+                fn()
+            torch.cuda.synchronize()
+    finally:
+        smi.terminate()
+        out = smi.communicate(timeout=30)[0]
+    samples = [float(v) for v in out.split() if v.replace(".", "").isdigit()]
+    if not samples:
+        fail("nvidia-smi gave no SM clock")
+    return samples
+
+
 def time_microbench() -> dict:
     """The probe's own run (the element throughput of float32 and of packed
-    bf16, from the slope between ``LO`` and ``HI`` trips) with its launch
-    count, then kernel 7's entry of the ``kernels`` line: the float32
-    instance at the probe's 512 trips, bound by operations."""
+    bf16, from the slope between ``LO`` and ``HI`` trips of single launches,
+    each timed alone) with its launch count, then kernel 7's entry of the
+    ``kernels`` line: the float32 instance at the probe's 512 trips, the
+    kernel alone (events around ``PROBE_TIMED`` back-to-back launches
+    enqueued while a spin holds the device, so that the host's time a call
+    does not set it; without the spin and the host's time a call beside
+    it; cold: L2 flushed before each launch), also at each of
+    ``PROBE_CURVE`` trips (the fixed cost and the back-to-back slope),
+    bound by operations at the published float32 peak and, beside it, by
+    instruction issue: the trip loop's machine instructions per
+    element-trip over 128 lanes an SM at the SM clock read while launches
+    of ``HI`` trips run back to back."""
     import torch
     from particlemethod_fsi_tpu_torch.tools import bf16_microbench as mb
 
-    x, y = mb.inputs()
+    types = (("float32", torch.float32), ("bfloat16", torch.bfloat16))
+    tiles = {name: mb.inputs(dtype=dtype) for name, dtype in types}
     mb.launch_counts["bf16_microbench"] = 0
-    thr = {name: mb.throughput(x, y, dtype) for name, dtype in
-           (("float32", torch.float32), ("bfloat16", torch.bfloat16))}
+    thr = {name: mb.throughput(*tiles[name], dtype) for name, dtype in types}
     launches = mb.launch_counts["bf16_microbench"]
 
-    def run(dtype=torch.float32):
-        return mb.run(x, y, dtype, mb.REPS)
+    def call(name, dtype):
+        return lambda: mb.run(*tiles[name], dtype, mb.REPS)
 
+    x, y = tiles["float32"]
     plain_ms = time_ms(lambda: mb.run_plain(x, y, torch.float32, mb.REPS), 1)
-    err = float((run() - mb.run_plain(x, y, torch.float32, mb.REPS))
-                .abs().max())
-    ms, cold = time_ms(run, 20), time_ms_cold(run, 5)
-    bf16_ms = time_ms(lambda: run(torch.bfloat16), 20)
-    elems = mb.B * mb.W
+    err = float((call("float32", torch.float32)() - mb.run_plain(
+        x, y, torch.float32, mb.REPS)).abs().max())
+    ms, host_ms, from_host_ms, per_call, by_trips = {}, {}, {}, {}, {}
+    for name, dtype in types:
+        fn = call(name, dtype)
+        before = mb.launch_counts["bf16_microbench"]
+        ms[name] = time_ms(fn, PROBE_TIMED, lead=True)
+        from_host_ms[name] = time_ms(fn, PROBE_TIMED)
+        per_call[name] = ((mb.launch_counts["bf16_microbench"] - before)
+                          / (2 * (PROBE_TIMED + 1)))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(PROBE_TIMED):
+            fn()
+        host_ms[name] = (time.perf_counter() - t0) / PROBE_TIMED * 1e3
+        torch.cuda.synchronize()
+        by_trips[name] = {
+            reps: time_ms(lambda reps=reps: mb.run(*tiles[name], dtype, reps),
+                          PROBE_TIMED, lead=True) for reps in PROBE_CURVE}
+    if set(per_call.values()) != {1.0}:
+        fail(f"bf16_microbench: launches per call {per_call}, not 1")
+    # element throughput of back-to-back launches, the kernel alone
+    alone = {name: mb.B * mb.W * (mb.HI - mb.LO)
+             / ((t[mb.HI] - t[mb.LO]) * 1e-3) for name, t in by_trips.items()}
+    cold = time_ms_cold(call("float32", torch.float32), 5, lead=True)
+    clock = sm_clock_mhz(lambda: mb.run(x, y, torch.float32, mb.HI))
+    mhz = float(np.median(clock))
+    sass = mb.kernel_sass()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    elem_trips = mb.B * mb.W * mb.REPS
+    issue_ms = {name: sass[name]["per_element_trip"] * elem_trips
+                / (sms * LANES_ISSUED_PER_SM_CLOCK * mhz * 1e6) * 1e3
+                for name, _ in types}
     row = _row("bf16_microbench", "bf16_microbench.cu",
-               "tools/bf16_microbench.py:55", err, ms, cold, plain_ms,
-               2 * elems * 4 + mb.B * 4,
-               mb.OPS_PER_ELEMENT * elems * mb.REPS)
+               "tools/bf16_microbench.py:55", err, ms["float32"], cold,
+               plain_ms, 2 * mb.B * mb.W * 4 + mb.B * 4,
+               mb.OPS_PER_ELEMENT * elem_trips)
     row["launches"] = launches
-    row.update(bf16_ms=bf16_ms,
+    row.update(bound_issue_ms=issue_ms["float32"],
+               issue_share=issue_ms["float32"] / ms["float32"],
+               bf16_ms=ms["bfloat16"],
+               bf16_bound_issue_ms=issue_ms["bfloat16"],
+               bf16_issue_share=issue_ms["bfloat16"] / ms["bfloat16"],
+               host_ms_per_call=host_ms["float32"],
+               bf16_host_ms_per_call=host_ms["bfloat16"],
+               ms_from_host=from_host_ms["float32"],
+               bf16_ms_from_host=from_host_ms["bfloat16"],
+               ms_by_trips=by_trips,
+               elements_per_s_alone_float32=alone["float32"],
+               elements_per_s_alone_bfloat16=alone["bfloat16"],
+               launches_per_call=per_call["float32"],
+               sm_clock_mhz=mhz, sm_clock_samples=len(clock),
+               sass_per_element_trip={k: v["per_element_trip"]
+                                      for k, v in sass.items()},
+               sass_loop={k: v["opcodes"] for k, v in sass.items()},
                elements_per_s_float32=thr["float32"]["elements_per_s"],
                elements_per_s_bfloat16=thr["bfloat16"]["elements_per_s"],
                bf16_over_float32=(thr["bfloat16"]["elements_per_s"]
@@ -1586,8 +1724,30 @@ def time_microbench() -> dict:
           f"Gelem/s ({thr['float32']['ns_per_trip']:.3f} ns a trip), packed "
           f"bf16 {thr['bfloat16']['elements_per_s'] / 1e9:.1f} Gelem/s "
           f"({thr['bfloat16']['ns_per_trip']:.3f} ns a trip): bf16 / float32 "
-          f"= {row['bf16_over_float32']:.3f}; one launch of {mb.REPS} trips "
-          f"{ms:.4f} ms float32, {bf16_ms:.4f} ms bf16; launches {launches}")
+          f"= {row['bf16_over_float32']:.3f}; launches {launches}")
+    print(f"probe (kernel 7), one launch of {mb.REPS} trips, the kernel alone "
+          f"(mean of {PROBE_TIMED} back-to-back, enqueued behind a device "
+          f"spin): float32 {ms['float32']:.4f} ms, cold L2 {cold:.4f} ms; bf16 "
+          f"{ms['bfloat16']:.4f} ms; from the host without the spin float32 "
+          f"{from_host_ms['float32']:.4f} ms, bf16 "
+          f"{from_host_ms['bfloat16']:.4f} ms, the host's time a call "
+          f"{host_ms['float32']:.4f} / {host_ms['bfloat16']:.4f} ms; "
+          f"launches per call {per_call['float32']:.0f}")
+    print(f"probe (kernel 7), the kernel alone by trips (ms): "
+          + json.dumps(by_trips) + f"; back-to-back slope between {mb.LO} "
+          f"and {mb.HI} trips: float32 {alone['float32'] / 1e9:.1f} Gelem/s, "
+          f"bf16 {alone['bfloat16'] / 1e9:.1f} Gelem/s (bf16 / float32 "
+          f"{alone['bfloat16'] / alone['float32']:.3f})")
+    print(f"probe (kernel 7), trip loop: SASS instructions per element-trip "
+          f"float32 {sass['float32']['per_element_trip']:.3f}, bf16 "
+          f"{sass['bfloat16']['per_element_trip']:.3f}; SM clock {mhz:.0f} "
+          f"MHz (median of {len(clock)} reads, {min(clock):.0f}-"
+          f"{max(clock):.0f}); issue-rate bound float32 "
+          f"{issue_ms['float32']:.6f} ms ({row['issue_share']:.1%} of it "
+          f"reached), bf16 {issue_ms['bfloat16']:.6f} ms "
+          f"({row['bf16_issue_share']:.1%}); published float32 bound "
+          f"{row['bound_ms']:.6f} ms ({row['roofline_share']:.1%}); loop "
+          f"opcodes " + json.dumps(row["sass_loop"]))
     return row
 
 
@@ -1656,8 +1816,10 @@ def main() -> int:
           "slot in every window (double, Turek channel at 20 mm): ok; "
           "largest error over row scale: " + json.dumps(ghost_err))
     probe_err = check_microbench()
-    print("probe (kernel 7) against its twin, 64 trips: ok; largest error "
-          "over the largest row sum: " + json.dumps(probe_err))
+    print(f"probe (kernel 7) against its twin at {PROBE_TRIPS} trips: ok, one "
+          "launch a call, two launches bit-equal, every term equal to the "
+          "twin's (counts below); largest error over the largest row sum: "
+          + json.dumps(probe_err))
     if "--kernels-only" in sys.argv[1:]:
         print(card_line)
         return 0

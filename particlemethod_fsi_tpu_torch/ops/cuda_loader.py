@@ -20,6 +20,7 @@ import contextlib
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -144,7 +145,11 @@ def _declare(lib: ctypes.CDLL) -> None:
             counts.argtypes = [vp]  # unsigned long long out[3], host memory
     lib.fsi_bf16_microbench.restype = ci
     lib.fsi_bf16_microbench.argtypes = [
-        ci, vp, vp, vp, ci, ci, ci, ci, vp,  # bf16 x y partial b w reps splits stream
+        ci, vp, vp, vp, ci, ci, ci, ci, vp,  # bf16 x y out b w reps blocks stream
+    ]
+    lib.fsi_bf16_microbench_terms.restype = ci
+    lib.fsi_bf16_microbench_terms.argtypes = [
+        ci, vp, vp, vp, ci, ci, vp,  # bf16 x y out n trip stream
     ]
     lib.fsi_virial_nconst.restype = ci
     lib.fsi_virial_nconst.argtypes = []
@@ -199,3 +204,20 @@ def build_log() -> str:
     """The compiler's output of the build in use (registers, shared memory
     and spills of each kernel, from ``-Xptxas -v``)."""
     return (Path(load()._name).parent / "build.log").read_text()
+
+
+def sass(lib: ctypes.CDLL) -> dict:
+    """name -> machine code of each kernel function of a built library
+    (``cuobjdump -sass``, beside ``nvcc``), one stripped line a line."""
+    cuobjdump = Path(_find_nvcc()).parent / "cuobjdump"
+    text = subprocess.run([str(cuobjdump), "-sass", lib._name],
+                          capture_output=True, text=True, check=True).stdout
+    funcs, name = {}, None
+    for line in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            funcs[name] = []
+        elif name is not None and line.strip():
+            funcs[name].append(line.strip())
+    return {k: "\n".join(v) for k, v in funcs.items()}

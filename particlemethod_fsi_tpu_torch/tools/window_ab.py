@@ -119,27 +119,10 @@ def _calls():
     return calls
 
 
-def _sass(lib) -> dict:
-    """name -> machine code of each kernel function of a built library
-    (``cuobjdump -sass``, beside ``nvcc``)."""
-    cuobjdump = Path(cuda_loader._find_nvcc()).parent / "cuobjdump"
-    text = subprocess.run([str(cuobjdump), "-sass", lib._name],
-                          capture_output=True, text=True, check=True).stdout
-    funcs, name = {}, None
-    for line in text.splitlines():
-        m = re.match(r"\s*Function : (\S+)", line)
-        if m:
-            name = m.group(1)
-            funcs[name] = []
-        elif name is not None and line.strip():
-            funcs[name].append(line.strip())
-    return {k: "\n".join(v) for k, v in funcs.items()}
-
-
 def _compare_sass(this, other) -> dict:
     """For each kernel family (the source's template name), how many of its
     functions the two libraries compile to the same machine code."""
-    a, b = _sass(this), _sass(other)
+    a, b = cuda_loader.sass(this), cuda_loader.sass(other)
     out = {}
     for name in sorted(set(a) | set(b)):
         fam = re.sub(r"^_Z\d+", "", name).split("I")[0]
