@@ -25,11 +25,15 @@ fault:
    513 trips (bf16 1e-4 of the row sum, and farther than that from the
    chain in float32; one launch a call, bit-equal twice; every element's
    term equal to the twin's), kernels 4-6
-   with every pad inside the fluid and in every window, and kernels 1-6 on
+   with every pad inside the fluid and in every window, kernels 1-6 on
    a ghost-extended frame of the Turek channel at 20 mm with every unfilled
-   ghost slot in every window; (b) the ``float`` instances on the
-   1M-particle frames of each backend's main path (both 1M scenes), where
-   the kernel must lie as close to a float64 evaluation as the plain
+   ghost slot in every window, and kernels 1-6 on plane-padded 3-D frames
+   of the solver's frame path (windows across plane ends, plane pads in
+   receivers' ring runs, ghost rows and plane pads in one frame); (b) the
+   ``float`` instances on the full-size frames of each backend's main path
+   (both 1M scenes, ``cases/gate3d``'s 3-D frame and the 3-D dam break's
+   at 2.08M), where the kernel
+   must lie as close to a float64 evaluation as the plain
    float32 version does; timed with inputs warm in L2 (back-to-back
    launches) and cold (L2 flushed before every launch), kernel 1 also with
    the neighbour count; each window kernel (1-6) also launched twice and
@@ -39,29 +43,36 @@ fault:
    pairs inside the kernel's reach, for the virial phase 2's count on the
    same frame: the same pre-test); printed beside the window senders;
 4. a small coupled scene in float64 on both backends, card (kernels)
-   against CPU (plain versions), ten steps; the Turek channel at 5 mm
+   against CPU (plain versions), ten steps, and a small 3-D dam break the
+   same way (plane-padded frames); the Turek channel at 5 mm
    (44,000 particles, ghost-extended) the same way, and again in chunks of
    1, 1, 3 and 5 steps with the ghost plan rebuilt by force before the
    last, printing the flag's velocity gap after each; and the gate case
    (6,724 particles, float64, 100 steps through ``load_case``) on both
-   backends against the reference binary's golden;
-5. the step path of each backend on two 1M scenes, the coupled dam break
-   on an elastic bar at ``n_side=1000`` (1,012,666 particles) and the
-   Turek channel at ``l0=1e-3`` (1,040,000 particles, ghost-extended),
-   float32, a warm-up chunk and three timed chunks of 20 steps through
-   ``Simulation.run_chunk`` with ``refresh_ghosts`` at each boundary;
+   backends against the reference binary's golden, the Rolling module
+   (rocking walls; 500 steps on ``pallas_t``, 100 on ``pallas``) and the
+   bar's tip after its first-mode excitation (100 steps) the same way;
+5. the step path of each backend on four full-size scenes, the coupled
+   dam break on an elastic bar at ``n_side=1000`` (1,012,666 particles),
+   the Turek channel at ``l0=1e-3`` (1,040,000 particles,
+   ghost-extended), the 3-D coupled dam-on-gate ``cases/gate3d`` (236,160
+   particles, plane-padded) and the 3-D dam break at ``n_side=120``
+   (2,077,920 particles; chunks of 10 steps on ``pallas_t``, 5 on
+   ``pallas``), float32, a warm-up chunk and three
+   timed chunks of 20 steps through ``Simulation.run_chunk`` with
+   ``refresh_ghosts`` at each boundary;
    finite positions, launch counts equal to the steps taken, rebuild
    count, ms/step, and where the step's time goes from CUDA events; the
    time of the extremes read each step makes; on the channel a ghost plan
    rebuilt by force, timed, and a chunk after it; then (field-major, the
-   bench scene) guarded against unguarded chunks, and the split of one
-   ``diagnostics`` call;
+   bench scene) guarded against unguarded chunks, and on every scene the
+   split of one ``diagnostics`` call;
    then frames of 2^24 cells or more, which ``pallas_t`` hands to the
    row-major kernels;
 6. the command-line path of each backend: the same scene written as
    ``.data`` and ``.grid`` into a temporary directory, ``cli.main`` in
    process on the card for one output interval with the watchdog on, and
-   the Turek channel the same way on ``pallas_t``;
+   the Turek channel and ``cases/gate3d`` the same way on ``pallas_t``;
    ``.prof`` and ``.vtk`` files with virial pressure, log and metrics
    written, read back and checked; launch counts of the backend's kernels;
    seconds of the writers and readers;
@@ -96,9 +107,15 @@ import numpy as np
 N_SIDE = 1000
 N_PARTICLES, N_SLOTS = 1_012_666, 1_012_736  # of the scene at N_SIDE
 TUREK_L0 = 1e-3
-# particles, slots and elastic substeps a step of each 1M scene
+# particles, slots and elastic substeps a step of each full-size scene
 SCENE_SIZES = {"bench": (N_PARTICLES, N_SLOTS, 1),
-               "turek": (1_040_000, 1_040_128, 5)}
+               "turek": (1_040_000, 1_040_128, 5),
+               "gate3d": (236_160, 236_288, 5),
+               "dam3d": (2_077_920, 2_077_952, 1)}
+SCALE = {"bench": "1M", "turek": "1M", "gate3d": "236k", "dam3d": "2.08M"}
+DAM3D_SIDE = 120  # models.dam_break_3d's n_side: 2,077,920 particles
+# steps a chunk of each scene's path (a warm-up chunk and TIMED_CHUNKS)
+PATH_CHUNK = {("dam3d", "pallas_t"): 10, ("dam3d", "pallas"): 5}
 CHUNK = 20
 TIMED_CHUNKS = 3
 CLI_STEPS = 20  # steps of the command-line phase's one output interval
@@ -108,42 +125,50 @@ CLI_ROWS_STEPS = 10  # the same on the row-major backend
 # float32 rate outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOP_PER_S = 67e12
-# float operations the main-path pair math needs for one pair inside the
-# kernel radius (planar, no surface tension, uniform radii), counted from
-# the formulas: separation and rij2 (5), rsqrt, r, q, 1-q (4); phase 1 adds
-# the wp sum (2) and the divergence (9); phase 2 adds the unit vector (2),
-# the pressure term (5), the viscosity term (14) and the force sums (4); the
-# virial adds the unit vector (2), the pressure term with P_i alone (3), the
-# half-weighted viscosity term with its finite test folded in (15), the force
-# components (2) and the four products and sums of the outer product (8)
-PHASE1_FLOP_PER_PAIR = 20
-PHASE2_FLOP_PER_PAIR = 34
-VIRIAL_FLOP_PER_PAIR = 39
-# the row-major kernels do the same pair math, with mu_h = 2 mu_i mu_j /
-# (mu_i + mu_j) guarded by a compare (phase 2: +3 over 2 / (1/mu_i + 1/mu_j);
-# virial: +1 over its finite test), and per particle the two cell
-# coordinates of the ring (subtract, divide, floor, two clamps: 5 each)
-PHASE1_ROWS_FLOP_PER_PAIR = 20
-PHASE2_ROWS_FLOP_PER_PAIR = 37
-VIRIAL_ROWS_FLOP_PER_PAIR = 40
-ROWS_FLOP_PER_PARTICLE = 10
-# bytes a particle that the function needs at the main path's flags (planar,
-# no surface tension, uniform ratios and radii, no count), float32.  Phase 1
-# reads x, y, vx, vy and the key and writes the wp sum and the divergence;
-# the density-A, gravity-centre and count rows are zero there and z, vz are
-# never used.  Phase 2 reads x, y, vx, vy, pressure P, 1/mu, key and type and
-# writes fx, fy.  The virial reads x, y, vx, vy, pressure P, 1/mu and the key
-# and writes the four in-plane components.  (The kernels as written move
-# more: pos and vel are staged as [N,3] rows and every output row is written.)
-PHASE1_BYTES_PER_PARTICLE = 5 * 4 + 2 * 4
-PHASE2_BYTES_PER_PARTICLE = 8 * 4 + 2 * 4
-VIRIAL_BYTES_PER_PARTICLE = 7 * 4 + 4 * 4
-# the row-major kernels read the type where the field-major ones read the
-# key (phase 1: x, y, vx, vy, type; phase 2: x, y, vx, vy, pressure P, mu,
-# type; virial: the same), and phase 1 always writes the neighbour count
-PHASE1_ROWS_BYTES_PER_PARTICLE = 5 * 4 + 3 * 4
-PHASE2_ROWS_BYTES_PER_PARTICLE = 7 * 4 + 2 * 4
-VIRIAL_ROWS_BYTES_PER_PARTICLE = 7 * 4 + 4 * 4
+# Each window kernel's bound counts: (a planar frame, a 3-D frame), both at
+# the main paths' flags (no surface tension, uniform ratios and radii, no
+# count).
+# Float operations a pair inside the kernel radius, counted from the
+# formulas.  Planar: separation and rij2 (5), rsqrt, r, q, 1-q (4); phase 1
+# adds the wp sum (2) and the divergence (9); phase 2 adds the unit vector
+# (2), the pressure term (5), the viscosity term (14) and the force sums (4);
+# the virial adds the unit vector (2), the pressure term with P_i alone (3),
+# the half-weighted viscosity term with its finite test folded in (15), the
+# force components (2) and the four products and sums of the outer product
+# (8).  The row-major kernels do the same pair math, with mu_h = 2 mu_i mu_j
+# / (mu_i + mu_j) guarded by a compare (phase 2: +3 over 2 / (1/mu_i +
+# 1/mu_j); virial: +1 over its finite test).  3-D adds the z terms: rij2
+# (+3), the divergence's or the viscosity's velocity term (+3), the unit
+# vector's z (+1), phase 2's fz sum (+2), the virial's fz (+1) and five more
+# outer-product terms (+10).
+FLOP_PER_PAIR = {
+    "phase1_sweep": (20, 26), "phase2_sweep": (34, 43),
+    "virial_sweep": (39, 57), "phase1_rows": (20, 26),
+    "phase2_rows": (37, 46), "virial_rows": (40, 58),
+}
+# the row-major ring's cell coordinates, a particle (subtract, divide,
+# floor, two clamps: 5 each; two planar, three in 3-D)
+ROWS_FLOP_PER_PARTICLE = (10, 15)
+# Bytes a particle that the function needs, float32.  Phase 1 reads x, y,
+# vx, vy and the key and writes the wp sum and the divergence; the
+# density-A, gravity-centre and count rows are zero there, and in a planar
+# frame z, vz are never used.  Phase 2 reads x, y, vx, vy, pressure P, 1/mu,
+# key and type and writes fx, fy.  The virial reads x, y, vx, vy, pressure
+# P, 1/mu and the key and writes the four in-plane components.  The
+# row-major functions read the type where the field-major ones read the key
+# (their rings come from the positions; the key only speeds the kernels'
+# run search), and phase 1 always writes the neighbour count.  3-D adds z
+# and vz read, phase 2's fz and the virial's five more components written.
+# (The kernels as written move more: pos and vel are staged as [N,3] rows
+# and every output row is written.)
+BYTES_PER_PARTICLE = {
+    "phase1_sweep": (5 * 4 + 2 * 4, 7 * 4 + 2 * 4),
+    "phase2_sweep": (8 * 4 + 2 * 4, 10 * 4 + 3 * 4),
+    "virial_sweep": (7 * 4 + 4 * 4, 9 * 4 + 9 * 4),
+    "phase1_rows": (5 * 4 + 3 * 4, 7 * 4 + 3 * 4),
+    "phase2_rows": (7 * 4 + 2 * 4, 9 * 4 + 3 * 4),
+    "virial_rows": (7 * 4 + 4 * 4, 9 * 4 + 9 * 4),
+}
 # larger than the card's L2 (50 MB on an H100): writing it evicts the inputs
 L2_FLUSH_BYTES = 256 * 2**20
 # clocks of the device spin (torch.cuda._sleep) that leads a timing: ~10 ms
@@ -391,10 +416,9 @@ def check_pads_in_windows(device) -> float:
     next to a fluid particle and every window run on to the frame's end, so
     that each pad lies in every receiver's window and in some receivers'
     position rings.  Each kernel keeps it out by its ring runs before its
-    validity test: kernel 5 takes them from the key (a pad's key
-    ``num_cells`` lies in no ring), kernels 4 and 6 from the linear cells of
-    the staged positions (a pad's, ``INT_MIN`` searched as unsigned, sorts
-    last).  Against the plain
+    validity test: all three take them from the key, and a pad's key
+    ``num_cells`` lies in no ring (a 3-D frame's plane pads, keyed with a
+    real cell, are ``check_planes_in_windows``' case).  Against the plain
     versions (rtol 1e-12 of the row scale), and the real rows against the
     same kernels on the exact windows."""
     import torch
@@ -451,9 +475,9 @@ def check_ghosts_in_windows(device) -> dict:
     receiver's window, and the ghost rows with a type (in the ghost cell
     layer at ``domain_min - cell_width`` and past the top) in many rings.
     Against the plain versions (rtol 1e-12 of the row scale), and the slot
-    rows against the same kernels on the exact windows.  Kernels 4 and 6
-    take their runs from the linear cells of the staged positions under the
-    frame (extended) grid, kernels 1-3 and 5 from the key."""
+    rows against the same kernels on the exact windows.  Every kernel takes
+    its runs from the key; kernels 4-6 test the ring on the linear cells of
+    the staged positions under the frame (extended) grid."""
     import torch
     from particlemethod_fsi_tpu_torch.models import build_turek
     from particlemethod_fsi_tpu_torch.ops import packed_engine as pk
@@ -532,6 +556,145 @@ def check_ghosts_in_windows(device) -> dict:
     return worst
 
 
+def planes_case(name: str, device):
+    """A plane-padded 3-D frame built by the solver's own frame path, float64,
+    block 32, with its windows and seeded phase-2 fields: ``"dam3d"``, the
+    3-D dam break at ``n_side=10`` with its fluid jittered (a window of the
+    last block of each plane reaches into the next plane), or ``"periodic"``,
+    a fluid block that fills its domain in x and y (ghost rows and plane pads
+    in one frame; the last cell of a plane, where the plane pads are keyed,
+    is a ghost corner that holds ghost rows, so some receivers' rings take
+    it)."""
+    import torch
+    from particlemethod_fsi_tpu_torch.config import NumericsConfig
+    from particlemethod_fsi_tpu_torch.generator import (
+        BoidScene, Primitive, generate_grid)
+    from particlemethod_fsi_tpu_torch.models import dam_break_3d
+    from particlemethod_fsi_tpu_torch.ops import windows as pw
+    from particlemethod_fsi_tpu_torch.solver import Simulation
+
+    nm = NumericsConfig(dtype="float64", backend="pallas", pallas_block=32)
+    rng = np.random.default_rng(len(name))
+    l0 = 1e-3
+    cfg, grid = dam_break_3d(10, numerics=nm)
+    if name == "periodic":
+        cfg = cfg.replace(gravity=(0.0, 0.0, 0.0))
+        grid = generate_grid(BoidScene(
+            particle_distance=l0, lower_domain=(0.0, 0.0, 0.0),
+            upper_domain=(11 * l0, 10 * l0, 10 * l0),
+            primitives=[Primitive("Cuboid", spacing=l0, type=0,
+                                  lower=(0, 0, 0),
+                                  upper=(11 * l0, 10 * l0, 7 * l0))]))
+    free = grid.prop < 4
+    grid.position[free] += rng.normal(scale=0.05 * l0,
+                                      size=(int(free.sum()), 3))
+    grid.velocity[:] = rng.normal(scale=0.05, size=(grid.n, 3))
+    sim = Simulation(cfg, grid, device=device)
+    st = sim.state0
+    (pos, vel, prop), _, over = sim._frame_inputs(st.pos, st.vel, st.prop)
+    frame = sim._frame(pos, vel, prop)
+    fgrid = sim._frame_grid
+    win = pw.compute_windows(frame, fgrid, sim._pcfg)
+    n = frame.pos.shape[0]
+
+    def seeded(scale, *shape):
+        return torch.as_tensor(rng.normal(scale=scale, size=shape)).to(device)
+
+    mu = sim.tables.shear_viscosity[torch.clamp(frame.prop, 0, 5).long()]
+    fields = dict(pp=seeded(1e2, n), pa=seeded(1e1, n), gc=seeded(1e-3, n, 3),
+                  mu=mu)
+    return sim, frame, win, pos.shape[0], int(over), fields
+
+
+def check_planes_in_windows(device) -> dict:
+    """Kernels 1-6 (double) on plane-padded 3-D frames (``planes_case``)
+    against their plain versions, rtol 1e-12 of the row scale.  Fails
+    unless some window spans a plane end (where the pad rows of one plane
+    sit between the rows of two) and, on the periodic block, ghost rows
+    and plane pads share the frame and some plane pad's key lies in a
+    valid receiver's ring run (the ring test on its position must reject
+    it).  Kernels 4 and 6 find their runs from the key: the staged linear
+    cells, where a pad reads INT_MIN, are not sorted in a window across a
+    plane end (``tests/test_torch_planes.py``)."""
+    import torch
+    from particlemethod_fsi_tpu_torch.ops import windows as pw
+    from particlemethod_fsi_tpu_torch.ops import windows_t as pwt
+
+    worst = {}
+    for name in ("dam3d", "periodic"):
+        sim, frame, win, n_ext, over, f = planes_case(name, device)
+        grid, ks, wcfg, tables = (sim._frame_grid, sim.kernels, sim._pcfg,
+                                  sim.tables)
+        nx, ny, nz = grid.cell_count
+        key = frame.key.long()
+        valid = frame.prop >= 0
+        plane_pad = (frame.orig >= n_ext) & (key < grid.num_cells)
+        ghost_rows = int(((frame.orig >= sim.n_pad) & (frame.orig < n_ext)
+                          & valid).sum())
+        ws, wl = (w.long() for w in win)
+        last = torch.clamp(ws + wl - 1, max=key.shape[0] - 1)
+        spans = int(((key[ws] // (nx * ny) != key[last] // (nx * ny))
+                     & (wl > 1)).sum())
+        lo, hi = pw.ring_runs_rows(frame, *win, grid, wcfg.block)
+        cum = torch.cat([torch.zeros(1, dtype=torch.long, device=device),
+                         torch.cumsum(plane_pad.long(), 0)])
+        in_rings = int(((cum[hi] - cum[lo]) * valid[:, None]).sum())
+        periodic = name == "periodic"
+        if not (nz > 1 and spans > 0 and int(plane_pad.sum()) > 0
+                and (in_rings > 0 or not periodic) and over == 0
+                and (ghost_rows > 0) == periodic):
+            fail(f"planes in windows ({name}): {nz} planes, {spans} windows "
+                 f"across a plane end, {int(plane_pad.sum())} plane pads, "
+                 f"{in_rings} in receivers' ring runs, {ghost_rows} ghost "
+                 f"rows, overflow {over}")
+        offs, _ = pw.row_offsets(grid)
+        invmu = pwt.inverse_viscosity(f["mu"])
+        kw = dict(volume=sim.volume, two_dimensional=False)
+        sweeps = {
+            "phase1_sweep": lambda k: (
+                pwt.phase1_sweep if k else pwt.phase1_sweep_plain)(
+                frame, *win, offs, ks, wcfg, tables, support=grid.support,
+                count=True),
+            "phase2_sweep": lambda k: (
+                pwt.phase2_sweep if k else pwt.phase2_sweep_plain)(
+                frame, f["pp"], f["pa"], f["gc"], invmu, *win, offs, ks,
+                wcfg, tables, **kw),
+            "virial_sweep": lambda k: (
+                pwt.virial_sweep if k else pwt.virial_sweep_plain)(
+                frame, f["pp"], f["pa"], f["gc"], invmu, *win, offs, ks,
+                wcfg, tables, **kw),
+            "phase1_rows": lambda k: (
+                pw.phase1_rows_sweep if k else pw.phase1_rows_sweep_plain)(
+                frame, *win, grid, ks, wcfg, tables),
+            "phase2_rows": lambda k: (
+                pw.phase2_rows_sweep if k else pw.phase2_rows_sweep_plain)(
+                frame, f["pp"], f["pa"], f["gc"], f["mu"], *win, grid, ks,
+                wcfg, tables, **kw),
+            "virial_rows": lambda k: (
+                pw.virial_rows_sweep if k else pw.virial_rows_sweep_plain)(
+                frame, f["pp"], f["pa"], f["gc"], f["mu"], *win, grid, ks,
+                wcfg, tables, **kw),
+        }
+        for kname, run in sweeps.items():
+            got, want = run(True), run(False)
+            torch.cuda.synchronize()
+            for r in range(want.shape[0]):
+                scale = float(want[r].abs().max())
+                err = float((got[r] - want[r]).abs().max())
+                if not torch.allclose(got[r], want[r], rtol=1e-12,
+                                      atol=1e-12 * scale):
+                    fail(f"{kname} on a plane-padded frame ({name}), row "
+                         f"{r}: {err:.3e} from the plain version (scale "
+                         f"{scale:.3e})")
+                if scale > 0:
+                    worst[kname] = max(worst.get(kname, 0.0), err / scale)
+        worst[name] = (f"{frame.pos.shape[0]} rows, {nz} planes, "
+                       f"{int(plane_pad.sum())} plane pads ({in_rings} in "
+                       f"receivers' ring runs), {ghost_rows} ghost rows, "
+                       f"{spans} windows across a plane end")
+    return worst
+
+
 def check_virial_rows(kname, case, want, wcfg):
     for r in range(9):
         live = r in (0, 1, 3, 4) or not wcfg.planar
@@ -541,7 +704,7 @@ def check_virial_rows(kname, case, want, wcfg):
 
 
 # ---------------------------------------------------------------------------
-# phase 3b: float instances on the 1M main-path frame
+# phase 3b: float instances on the main-path frames
 # ---------------------------------------------------------------------------
 
 
@@ -558,8 +721,8 @@ def judge(kname, k32, p32, p64, count_row=None):
     if count_row is not None:
         d = (k32[count_row] - p32[count_row]).abs()
         if not (float(d.max()) <= 1 and int((d > 0).sum()) <= 1e-5 * d.numel()):
-            fail(f"{kname} float32 at 1M: neighbour counts differ by up to "
-                 f"{float(d.max())} at {int((d > 0).sum())} receivers")
+            fail(f"{kname} float32 on the main-path frame: neighbour "
+                 f"counts differ by up to {float(d.max())} at {int((d > 0).sum())} receivers")
     for r in range(p64.shape[0]):
         if r == count_row:
             continue
@@ -568,8 +731,8 @@ def judge(kname, k32, p32, p64, count_row=None):
         err_p = float((p32[r].double() - p64[r]).abs().max())
         worst = max(worst, float((k32[r] - p32[r]).abs().max()))
         if not err_k <= 8 * err_p + 1e-6 * scale:
-            fail(f"{kname} float32 at 1M, row {r}: kernel is {err_k:.3e} "
-                 f"from the float64 result, the plain version "
+            fail(f"{kname} float32 on the main-path frame, row {r}: "
+                 f"kernel is {err_k:.3e} from the float64 result, the plain version "
                  f"{err_p:.3e} (scale {scale:.3e})")
     return worst
 
@@ -589,10 +752,10 @@ def kernel_row(name, source, replaces, run, plain, plain64, nbytes, flops,
 
 def main_frame(sim, state):
     """A fresh frame of the state with its windows and a float64 copy, the
-    way the step builds it, and the pairs inside the kernel radius (for the
+    way the step builds it (ghost-extended on a periodic scene,
+    plane-padded in 3-D), and the pairs inside the kernel radius (for the
     operations bound)."""
     import torch
-    from particlemethod_fsi_tpu_torch.ops import packed_engine as pk
     from particlemethod_fsi_tpu_torch.ops.walls import periodic_wrap
     from particlemethod_fsi_tpu_torch.ops import windows as pw
     from particlemethod_fsi_tpu_torch.ops import windows_t as pwt
@@ -603,7 +766,7 @@ def main_frame(sim, state):
     # the ghost rows of a periodic scene
     pos = periodic_wrap(state.pos, sim._dmin_t, sim._width_t)
     (pos, vel, prop), _, _ = sim._frame_inputs(pos, state.vel, state.prop)
-    frame = pk.sort_frame(pos, vel, prop, grid)
+    frame = sim._frame(pos, vel, prop)
     win = pw.compute_windows(frame, grid, wcfg)
     frame64 = SortedFrame(key=frame.key, pos=frame.pos.double(),
                           vel=frame.vel.double(), prop=frame.prop,
@@ -640,14 +803,15 @@ def check_and_time_main_frame(sim, state, counting, scene="bench") -> list:
     p1 = dict(support=grid.support, count=False)
     run1 = lambda **kw: pwt.phase1_sweep(  # noqa: E731
         frame, *win, offs, ks, wcfg, tables, **{**p1, **kw})
+    d3 = int(not sim.cfg.two_dimensional)
     rows.append(kernel_row(
         "phase1_sweep", "phase1_sweep.cu", f"{src}:172", run1,
         lambda: pwt.phase1_sweep_plain(frame, *win, offs, ks, wcfg, tables,
                                        **p1),
         lambda: pwt.phase1_sweep_plain(frame64, *win, offs, ks, wcfg,
                                        tables64, **p1),
-        n * PHASE1_BYTES_PER_PARTICLE + table_bytes,
-        true_pairs * PHASE1_FLOP_PER_PAIR))
+        n * BYTES_PER_PARTICLE["phase1_sweep"][d3] + table_bytes,
+        true_pairs * FLOP_PER_PAIR["phase1_sweep"][d3]))
     # with the neighbour count (every dump): the reach widens to the support
     rows[0].update(count_ms=time_ms(lambda: run1(count=True), 50),
                    count_cold_l2_ms=time_ms_cold(lambda: run1(count=True), 10))
@@ -668,23 +832,22 @@ def check_and_time_main_frame(sim, state, counting, scene="bench") -> list:
     a32 = (frame, pp, pa, gc, invmu, *win, offs, ks, wcfg, tables)
     a64 = (frame64, pp.double(), pa.double(), gc.double(), invmu.double(),
            *win, offs, ks, wcfg, tables64)
-    for name, kernel, plain, line, per_particle, per_pair in (
-            ("phase2_sweep", pwt.phase2_sweep, pwt.phase2_sweep_plain, 330,
-             PHASE2_BYTES_PER_PARTICLE, PHASE2_FLOP_PER_PAIR),
-            ("virial_sweep", pwt.virial_sweep, pwt.virial_sweep_plain, 745,
-             VIRIAL_BYTES_PER_PARTICLE, VIRIAL_FLOP_PER_PAIR)):
+    for name, kernel, plain, line in (
+            ("phase2_sweep", pwt.phase2_sweep, pwt.phase2_sweep_plain, 330),
+            ("virial_sweep", pwt.virial_sweep, pwt.virial_sweep_plain, 745)):
         rows.append(kernel_row(
             name, f"{name}.cu", f"{src}:{line}",
             lambda k=kernel: k(*a32, **kw), lambda p=plain: p(*a32, **kw),
             lambda p=plain: p(*a64, **kw),
-            n * per_particle + table_bytes, true_pairs * per_pair))
+            n * BYTES_PER_PARTICLE[name][d3] + table_bytes,
+            true_pairs * FLOP_PER_PAIR[name][d3]))
     walk, passed2 = ring_walk(
         "phase2_sweep", lambda: pwt.phase2_sweep(*a32, **kw), runs, rows[1],
         counting)
     walk3, _ = ring_walk(
         "virial_sweep", lambda: pwt.virial_sweep(*a32, **kw), runs, rows[2],
         counting, passed_as=("kernel 2", passed2))
-    print(f"kernels at 1M ({scene}, pallas_t frame): frame rows {n} "
+    print(f"kernels at {SCALE[scene]} ({scene}, pallas_t frame): frame rows {n} "
           f"({_frame_rows(sim, frame)}), window senders "
           f"per receiver {tested_pairs / n:.1f} (kernels 1-3 walk only their "
           f"ring runs); kernel 1: {walk1}; kernel 2: {walk}; kernel 3: "
@@ -715,14 +878,16 @@ def check_and_time_rows_frame(sim, state, counting, scene="bench") -> list:
     rows = []
     p1 = (frame, *win, grid, ks, wcfg, tables)
     runs = pw.ring_runs_rows(frame, *win, grid, wcfg.block)
+    d3 = int(not sim.cfg.two_dimensional)
     rows.append(kernel_row(
         "phase1_rows", "phase1_sweep.cu", f"{src}:199",
         lambda: pw.phase1_rows_sweep(*p1),
         lambda: pw.phase1_rows_sweep_plain(*p1),
         lambda: pw.phase1_rows_sweep_plain(frame64, *win, grid, ks, wcfg,
                                            tables64),
-        n * PHASE1_ROWS_BYTES_PER_PARTICLE + table_bytes,
-        true_pairs * PHASE1_ROWS_FLOP_PER_PAIR + n * ROWS_FLOP_PER_PARTICLE,
+        n * BYTES_PER_PARTICLE["phase1_rows"][d3] + table_bytes,
+        true_pairs * FLOP_PER_PAIR["phase1_rows"][d3]
+        + n * ROWS_FLOP_PER_PARTICLE[d3],
         count_row=pw.P1_COUNT))
 
     # kernel 4 against kernel 1 on this fresh frame: the same pairs (keys
@@ -738,10 +903,11 @@ def check_and_time_rows_frame(sim, state, counting, scene="bench") -> list:
         d = float((a - b).abs().max())
         diff4 = max(diff4, d)
         if not d <= 1e-6 * max(float(b.abs().max()), 1e-30):
-            fail(f"phase1_rows against phase1_sweep at 1M: {k} differs by "
-                 f"{d:.3e}")
+            fail(f"phase1_rows against phase1_sweep on the main-path "
+                 f"frame: {k} differs by {d:.3e}")
     if not torch.equal(f4["neighbor_count"], f1["neighbor_count"]):
-        fail("phase1_rows against phase1_sweep at 1M: neighbour counts differ")
+        fail("phase1_rows against phase1_sweep on the main-path frame: "
+             "neighbour counts differ")
     # the pre-test's reach is the support, the count's radius: the senders
     # passing it are the kernel's own count, and the plain version's
     walk4, _ = ring_walk(
@@ -756,25 +922,26 @@ def check_and_time_rows_frame(sim, state, counting, scene="bench") -> list:
     a32 = (frame, pp, pa, gc, mu, *win, grid, ks, wcfg, tables)
     a64 = (frame64, pp.double(), pa.double(), gc.double(), mu.double(),
            *win, grid, ks, wcfg, tables64)
-    for name, kernel, plain, source, line, per_particle, per_pair in (
+    for name, kernel, plain, source, line in (
             ("phase2_rows", pw.phase2_rows_sweep, pw.phase2_rows_sweep_plain,
-             "phase2_sweep.cu", 331, PHASE2_ROWS_BYTES_PER_PARTICLE,
-             PHASE2_ROWS_FLOP_PER_PAIR),
+             "phase2_sweep.cu", 331),
             ("virial_rows", pw.virial_rows_sweep, pw.virial_rows_sweep_plain,
-             "virial_sweep.cu", 676, VIRIAL_ROWS_BYTES_PER_PARTICLE,
-             VIRIAL_ROWS_FLOP_PER_PAIR)):
+             "virial_sweep.cu", 676)):
         rows.append(kernel_row(
             name, source, f"{src}:{line}",
             lambda k=kernel: k(*a32, **kw), lambda p=plain: p(*a32, **kw),
-            lambda p=plain: p(*a64, **kw), n * per_particle + table_bytes,
-            true_pairs * per_pair + n * ROWS_FLOP_PER_PARTICLE))
+            lambda p=plain: p(*a64, **kw),
+            n * BYTES_PER_PARTICLE[name][d3] + table_bytes,
+            true_pairs * FLOP_PER_PAIR[name][d3]
+            + n * ROWS_FLOP_PER_PARTICLE[d3]))
     walk, passed5 = ring_walk(
         "phase2_rows", lambda: pw.phase2_rows_sweep(*a32, **kw), runs,
         rows[1], counting)
     walk6, _ = ring_walk(
         "virial_rows", lambda: pw.virial_rows_sweep(*a32, **kw), runs,
         rows[2], counting, passed_as=("kernel 5", passed5))
-    print(f"kernels at 1M ({scene}, pallas frame, {_frame_rows(sim, frame)}):"
+    print(f"kernels at {SCALE[scene]} ({scene}, pallas frame, "
+          f"{_frame_rows(sim, frame)}):"
           f" kernel 4's fields against kernel "
           f"1's on the same frame: largest difference {diff4:.3e}, neighbour "
           f"counts equal; window senders per receiver "
@@ -787,11 +954,14 @@ def check_and_time_rows_frame(sim, state, counting, scene="bench") -> list:
 
 def _frame_rows(sim, frame) -> str:
     """What a frame holds: slots, ghost rows with a type, unfilled ghost
-    slots."""
-    ghost = frame.orig >= sim.n_pad
+    slots, plane pads."""
+    n_ext = sim.n_pad + (sim._ghosts.total_capacity
+                         if sim._ghosts is not None else 0)
+    ghost = (frame.orig >= sim.n_pad) & (frame.orig < n_ext)
     filled = int((ghost & (frame.prop >= 0)).sum())
     return (f"{sim.n_pad} slots, {filled} ghost rows, "
-            f"{int(ghost.sum()) - filled} unfilled ghost slots")
+            f"{int(ghost.sum()) - filled} unfilled ghost slots, "
+            f"{int((frame.orig >= n_ext).sum())} plane pads")
 
 
 def ring_walk(name, run, runs, row, counting, passed=None,
@@ -809,8 +979,9 @@ def ring_walk(name, run, runs, row, counting, passed=None,
     within one float32 rounding of the radius may fall either side).
     ``passed_as`` = (another kernel, its count of senders passing): the
     count must equal it exactly (the virial's pre-test is phase 2's).
-    Returns the text of those counts at 1M, which also go into the kernel's
-    row of the ``kernels`` line, and the count of senders passing."""
+    Returns the text of those counts on the main-path frame, which also go
+    into the kernel's row of the ``kernels`` line, and the count of senders
+    passing."""
     import ctypes
     import torch
     from particlemethod_fsi_tpu_torch.ops import cuda_loader
@@ -820,7 +991,7 @@ def ring_walk(name, run, runs, row, counting, passed=None,
     a, b = run(), run()
     torch.cuda.synchronize()
     if not torch.equal(a, b):
-        fail(f"{name} at 1M: two launches differ by "
+        fail(f"{name} on the main-path frame: two launches differ by "
              f"{float((a - b).abs().max()):.3e}")
     if read(ctypes.addressof(counts)) != 0:  # clears them
         fail(f"{name}: the checking build's counts could not be read")
@@ -830,28 +1001,28 @@ def ring_walk(name, run, runs, row, counting, passed=None,
     if read(ctypes.addressof(counts)) != 0:
         fail(f"{name}: the checking build's counts could not be read")
     if not torch.equal(a, c):
-        fail(f"{name} at 1M: the counting build differs by "
+        fail(f"{name} on the main-path frame: the counting build differs by "
              f"{float((a - c).abs().max()):.3e}")
     lo, hi = runs
     length = hi - lo
     n = length.shape[0]
     if counts[0] != int(length.sum()):
-        fail(f"{name} at 1M: the kernel pre-tested {counts[0]} senders, the "
-             f"receivers' ring runs hold {int(length.sum())}")
+        fail(f"{name} on the main-path frame: the kernel pre-tested "
+             f"{counts[0]} senders, the receivers' ring runs hold {int(length.sum())}")
     text = ""
     if passed is not None:
         own, plain = passed
         if counts[2] != own or abs(counts[2] - plain) > 1e-5 * n:
-            fail(f"{name} at 1M: {counts[2]} senders passed the pre-test; "
-                 f"pairs within its reach {own:.0f} by the kernel's count, "
+            fail(f"{name} on the main-path frame: {counts[2]} senders "
+                 f"passed the pre-test; pairs within its reach {own:.0f} by the kernel's count, "
                  f"{plain:.0f} by the plain version's")
         text = (f" (the pairs within its reach: the kernel's count exactly, "
                 f"the plain version's {plain / n:.2f})")
     if passed_as is not None:
         other, other_passed = passed_as
         if counts[2] != other_passed:
-            fail(f"{name} at 1M: {counts[2]} senders passed the pre-test, "
-                 f"{other_passed} in {other} on the same frame")
+            fail(f"{name} on the main-path frame: {counts[2]} senders "
+                 f"passed the pre-test, {other_passed} in {other} on the same frame")
         text = f" ({other}'s, exactly)"
     warps = n // 32
     tested, steps, npass = counts[0] / n, counts[1] / warps, counts[2] / n
@@ -892,29 +1063,43 @@ def _row(name, source, replaces, err, ms, cold_ms, plain_ms, nbytes, flops):
 # ---------------------------------------------------------------------------
 
 
-def check_small_scene(backend: str):
-    """Ten coupled steps of the bench scene at n_side=24 in float64 on one
-    backend: the card (CUDA kernels) against the CPU (plain versions).
-    Tolerance: the bar the repository holds its backends to among
-    themselves (pos rtol 1e-12 / atol 1e-15, vel rtol 1e-9 / atol 1e-13):
-    only the order of the pair sums differs."""
-    from particlemethod_fsi_tpu_torch.models import build_case
+def check_small_scene(backend: str, three_d: bool = False):
+    """Ten steps of a small scene in float64 on one backend: the card (CUDA
+    kernels) against the CPU (plain versions).  The coupled bench scene at
+    n_side=24, or with ``three_d`` the 3-D dam break at ``n_side=8``
+    (plane-padded frames; margin 0.5 as the bench, so that ``pallas_t``
+    reuses its frame).  Tolerance: the bar the repository holds its
+    backends to among themselves (pos rtol 1e-12 / atol 1e-15, vel rtol
+    1e-9 / atol 1e-13): only the order of the pair sums differs.  Returns
+    the particles, the largest position gap and the rebuilds."""
+    from particlemethod_fsi_tpu_torch.config import NumericsConfig
+    from particlemethod_fsi_tpu_torch.models import (
+        bench_config, bench_grid, dam_break_3d)
+    from particlemethod_fsi_tpu_torch.solver import Simulation
     from particlemethod_fsi_tpu_torch.state import to_numpy
 
     kw = dict(dtype="float64", pallas_block=32, backend=backend)
-    gpu = build_case(24, **kw)
-    cpu = build_case(24, device="cpu", **kw)
+    if three_d:
+        cfg, grid = dam_break_3d(8, numerics=NumericsConfig(
+            rebuild_margin=0.5, **kw))
+    else:
+        cfg, grid = bench_config(**kw), bench_grid(24)
+    gpu = Simulation(cfg, grid)
+    cpu = Simulation(cfg, grid, device="cpu")
     a = to_numpy(gpu.run_chunk(gpu.state0, 10), gpu.n)
     b = to_numpy(cpu.run_chunk(cpu.state0, 10), cpu.n)
-    if gpu.rebuilds != cpu.rebuilds:
-        fail(f"small scene ({backend}): rebuilds differ, card {gpu.rebuilds} "
-             f"cpu {cpu.rebuilds}")
+    what = f"small {'3-D ' if three_d else ''}scene ({backend})"
+    if gpu.rebuilds != cpu.rebuilds or gpu._pad_planes != three_d:
+        fail(f"{what}: rebuilds card {gpu.rebuilds} cpu {cpu.rebuilds}, "
+             f"plane padding {gpu._pad_planes}")
     try:
         np.testing.assert_allclose(a["pos"], b["pos"], rtol=1e-12, atol=1e-15)
         np.testing.assert_allclose(a["vel"], b["vel"], rtol=1e-9, atol=1e-13)
     except AssertionError as e:
-        fail(f"small scene ({backend}): card and CPU disagree: {e}")
-    return float(np.abs(a["pos"] - b["pos"]).max()), gpu.rebuilds
+        fail(f"{what}: card and CPU disagree: {e}")
+    if not float(np.abs(a["pos"] - grid.position).max()) > 0:
+        fail(f"{what}: nothing moved")
+    return gpu.n, float(np.abs(a["pos"] - b["pos"]).max()), gpu.rebuilds
 
 
 def check_turek_small(backend: str):
@@ -1005,6 +1190,92 @@ def check_turek_growth(backend: str) -> dict:
     return gaps
 
 
+def _golden(*parts):
+    here = os.path.dirname(os.path.abspath(__file__))
+    with gzip.open(os.path.join(here, "goldens", *parts), "rt") as f:
+        f.readline()
+        f.readline()
+        return np.loadtxt(f)
+
+
+def _case_sim(tmp: str, case: str, name: str, gold: str, scene: str,
+              backend: str):
+    """The ``.boid`` of ``cases/<case>`` through the port's generator (into
+    ``tmp``), the golden's own ``.data``, float64 on the card."""
+    from particlemethod_fsi_tpu_torch.config import NumericsConfig
+    from particlemethod_fsi_tpu_torch.generator import generate_case
+    from particlemethod_fsi_tpu_torch.solver import Simulation, load_case
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    if not os.path.exists(os.path.join(tmp, name + ".grid")):
+        shutil.copy(os.path.join(here, "cases", case, name + ".boid"), tmp)
+        generate_case(os.path.join(tmp, name))
+    cfg, grid = load_case(
+        os.path.join(here, "goldens", gold, name + ".data"),
+        os.path.join(tmp, name + ".grid"), scene=scene,
+        numerics=NumericsConfig(dtype="float64", backend=backend))
+    return Simulation(cfg, grid), grid
+
+
+def check_rolling_golden(tmp: str, backend: str, steps: int):
+    """The Rolling module (walls rocking about Wall6's centre, the sloshing
+    fluid, a clamped post; ``cases/rolling``), float64, ``steps`` steps on
+    the card on one backend, against ``goldens/rolling/rolling<steps>``
+    written by the reference binary: every row and the wall rows within
+    2.0e-5 m (the bars of ``tests/test_golden.py``)."""
+    from particlemethod_fsi_tpu_torch.ops import windows as pw
+    from particlemethod_fsi_tpu_torch.state import to_numpy
+
+    sim, grid = _case_sim(tmp, "rolling", "rolling", "rolling", "rolling",
+                          backend)
+    if sim._walls_static:
+        fail("rolling golden: the walls are static")
+    pw.reset_launch_counts()
+    state, done, ok = sim.run_chunk_guarded(sim.state0, steps)
+    if (done, ok) != (steps, True):
+        fail(f"rolling golden ({backend}): stopped after {done} steps")
+    if pw.launch_counts != expect_counts(backend, steps, 0):
+        fail(f"rolling golden ({backend}): launch counts {pw.launch_counts}")
+    out = to_numpy(state, sim.n)
+    gold = _golden("rolling", f"rolling{steps:04d}.prof.gz")
+    wall = gold[:, 0].astype(int) == 4
+    dp = float(np.abs(out["pos"][:, :2] - gold[:, 1:3]).max())
+    dw = float(np.abs(out["pos"][wall, :2] - gold[wall, 1:3]).max())
+    if not (dp < 2.0e-5 and dw < 2.0e-5):
+        fail(f"rolling golden ({backend}): positions differ by {dp:.3e} m, "
+             f"wall rows {dw:.3e} m after {steps} steps")
+    return sim.n, dp, dw
+
+
+def check_bar_golden(tmp: str, backend: str):
+    """The bar (``cases/bar``), excited in its first bending mode
+    (``apply_initial_velocity_profile``), float64 on the card: its tip
+    against the reference binary's trajectory at steps 0, 20, ..., 100,
+    within 1 % of the trajectory's peak."""
+    from particlemethod_fsi_tpu_torch.state import to_numpy
+
+    sim, grid = _case_sim(tmp, "bar", "bar", "bar", "bar", backend)
+    state = sim.apply_initial_velocity_profile(sim.state0)
+    x0 = np.asarray(grid.initial_position)
+    tip = int(np.argmax(x0[:, 0]))
+    here = os.path.dirname(os.path.abspath(__file__))
+    gold = np.genfromtxt(os.path.join(here, "goldens", "bar",
+                                      "tip_trajectory.csv"),
+                         delimiter=",", names=True)
+    step, errs = 0, []
+    for t_g, uy_g in zip(gold["time"][:6], gold["uy"][:6]):
+        target = int(round(t_g / sim.cfg.dt))
+        state = sim.run_chunk(state, target - step)
+        step = target
+        out = to_numpy(state, sim.n)
+        errs.append(abs((out["pos"][tip, 1] - x0[tip, 1]) - uy_g))
+    peak = float(np.abs(gold["uy"]).max())
+    if not (step == 100 and max(errs) < 0.01 * peak):
+        fail(f"bar golden ({backend}): tip error {max(errs):.3e} m against "
+             f"1 % of the peak {peak:.3e} m through step {step}")
+    return sim.n, max(errs), peak
+
+
 # ---------------------------------------------------------------------------
 # phase 5: the main path
 # ---------------------------------------------------------------------------
@@ -1028,22 +1299,54 @@ def expect_counts(backend: str, steps: int, dumps: int) -> dict:
     return want
 
 
+def gate3d_case(backend: str):
+    """``cases/gate3d`` as its ``execute.sh`` runs it: the grid of
+    ``gate3d.boid`` through the port's generator (236,160 particles), the
+    physics of ``gate3d.data``, scene ``dam``, C8 margin 0.5; float32 on
+    ``backend``.  Returns ``(cfg, grid)``."""
+    import dataclasses
+
+    from particlemethod_fsi_tpu_torch.config import SCENES, NumericsConfig
+    from particlemethod_fsi_tpu_torch.generator import (
+        generate_grid, parse_boid_file)
+    from particlemethod_fsi_tpu_torch.io.data_file import parse_data_file
+
+    here = os.path.join(os.path.dirname(os.path.abspath(__file__)), "cases",
+                        "gate3d")
+    grid = generate_grid(parse_boid_file(os.path.join(here, "gate3d.boid")))
+    cfg = dataclasses.replace(
+        parse_data_file(os.path.join(here, "gate3d.data")),
+        scene=SCENES["dam"], two_dimensional=False,
+        numerics=NumericsConfig(backend=backend, rebuild_margin=0.5))
+    return cfg, grid
+
+
 def build_scene(scene: str, backend: str):
-    """A 1M scene on the card, float32, block 64: the bench scene at
-    ``n_side=1000`` or the Turek channel at ``l0=1e-3``."""
-    from particlemethod_fsi_tpu_torch.models import build_case, build_turek
+    """A full-size scene on the card, float32, block 64: the bench scene at
+    ``n_side=1000``, the Turek channel at ``l0=1e-3``, ``cases/gate3d`` or
+    the 3-D dam break at ``n_side=120`` (C8 margin 0.5, as the bench)."""
+    from particlemethod_fsi_tpu_torch.config import NumericsConfig
+    from particlemethod_fsi_tpu_torch.models import (
+        build_case, build_turek, dam_break_3d)
+    from particlemethod_fsi_tpu_torch.solver import Simulation
 
     if scene == "bench":
         return build_case(N_SIDE, backend=backend)
-    return build_turek(TUREK_L0, backend=backend)
+    if scene == "turek":
+        return build_turek(TUREK_L0, backend=backend)
+    if scene == "gate3d":
+        return Simulation(*gate3d_case(backend))
+    return Simulation(*dam_break_3d(DAM3D_SIDE, numerics=NumericsConfig(
+        backend=backend, rebuild_margin=0.5)))
 
 
 def run_path(backend: str, scene: str = "bench"):
-    """A 1M scene on one backend: a warm-up chunk and three timed chunks
-    through ``run_chunk``, with ``refresh_ghosts`` at every chunk boundary
-    (timed apart), the launch counts of those 80 steps, ms/step and its
-    breakdown by section, and the host time of the extremes read each step
-    makes."""
+    """A full-size scene on one backend: a warm-up chunk and three timed
+    chunks through ``run_chunk`` (20 steps each; the 3-D dam's 10 on
+    ``pallas_t``, 5 on ``pallas``), with ``refresh_ghosts`` at every chunk
+    boundary (timed apart), the launch counts of those steps, ms/step and
+    its breakdown by section, and the host time of the extremes read each
+    step makes."""
     import torch
     from particlemethod_fsi_tpu_torch.ops import ghosts as gh
     from particlemethod_fsi_tpu_torch.ops import windows as pw
@@ -1056,7 +1359,10 @@ def run_path(backend: str, scene: str = "bench"):
     if sim.n != n_want or sim.n_pad != slots_want:
         fail(f"{scene} path: {sim.n} particles in {sim.n_pad} slots")
     flags = sim._pcfg
-    if (flags.surface_tension or not flags.uniform_ratio or not flags.planar
+    chunk = PATH_CHUNK.get((scene, backend), CHUNK)
+    three_d = scene in ("gate3d", "dam3d")
+    if (flags.surface_tension or not flags.uniform_ratio
+            or flags.planar == three_d or sim._pad_planes != three_d
             or not flags.uniform_radii or flags.block != 64
             or sim.dtype != torch.float32 or sim.cfg.substeps != substeps
             or sim._backend != backend):
@@ -1067,7 +1373,7 @@ def run_path(backend: str, scene: str = "bench"):
         fail(f"{scene} path: {ghosts} ghost rows")
 
     pw.reset_launch_counts()
-    state = sim.run_chunk(sim.state0, CHUNK)  # warm-up
+    state = sim.run_chunk(sim.state0, chunk)  # warm-up
     torch.cuda.synchronize()
     chunk_ms, refresh_ms = [], []
     for c in range(TIMED_CHUNKS):
@@ -1078,20 +1384,20 @@ def run_path(backend: str, scene: str = "bench"):
             sim.profile_events = []
         torch.cuda.synchronize()
         t0 = time.time()
-        state = sim.run_chunk(state, CHUNK)
+        state = sim.run_chunk(state, chunk)
         torch.cuda.synchronize()
-        chunk_ms.append((time.time() - t0) * 1e3 / CHUNK)
+        chunk_ms.append((time.time() - t0) * 1e3 / chunk)
     events, sim.profile_events = sim.profile_events, None
     counts = dict(pw.launch_counts)
-    steps = CHUNK * (TIMED_CHUNKS + 1)
+    steps = chunk * (TIMED_CHUNKS + 1)
     # the extremes each step reads (with the C8 predicate on pallas_t, on
     # their own on pallas): a reduction and a read of six numbers
     invalid = state.prop < 0
     torch.cuda.synchronize()
     t0 = time.time()
-    for _ in range(CHUNK):
+    for _ in range(chunk):
         sim._read(gh.valid_extremes(state.pos, invalid))
-    read_ms = (time.time() - t0) * 1e3 / CHUNK
+    read_ms = (time.time() - t0) * 1e3 / chunk
 
     if not bool(torch.isfinite(state.pos).all()):
         fail(f"{scene} path: positions are not all finite")
@@ -1113,13 +1419,13 @@ def run_path(backend: str, scene: str = "bench"):
         fail(f"{scene} path: ghost overflow {int(state.ghost_overflow)}, "
              f"{sim.ghost_refreshes} plan rebuilds")
     speed = float(state.vel[: sim.n].norm(dim=1).max())
-    if scene == "bench":
+    if scene != "turek":
         fell = float((sim.state0.pos[: sim.n, 1]
                       - state.pos[: sim.n, 1]).max())
         # free fall over 80 steps of 1e-4 s: g t^2 / 2 = 3.1e-4 m, v = 0.078
         # m/s
         if not (0 < speed < 5.0 and 0 < fell < 5e-3):
-            fail(f"bench path: max speed {speed}, largest drop {fell}")
+            fail(f"{scene} path: max speed {speed}, largest drop {fell}")
     else:
         # the channel flows at 1 m/s on the centre line, 1.5 m/s at the
         # inlet: the fluid's mean x velocity stays near 2/3 of the centre
@@ -1146,7 +1452,7 @@ def run_path(backend: str, scene: str = "bench"):
              "phase2": "phase 2",
              "integrate": "gravity, unsort, kick, convection",
              "solid": "elastic solid"}
-    breakdown = {label[k]: v / CHUNK for k, v in spans.items()}
+    breakdown = {label[k]: v / chunk for k, v in spans.items()}
     ms = float(np.median(chunk_ms))
     print(f"{scene} path ({backend}): {sim.n} particles ({sim.n_pad} slots, "
           f"{ghosts} ghost rows), float32, set-up {setup_s:.1f} s, {steps} "
@@ -1201,8 +1507,8 @@ def time_plan_rebuild(sim, state):
 
 
 def time_diagnostics(sim, state, backend: str, scene: str = "bench") -> dict:
-    """The split of one ``diagnostics`` call at 1M, after a warm-up call;
-    the launch counts of that one call."""
+    """The split of one ``diagnostics`` call on a full-size scene, after a
+    warm-up call; the launch counts of that one call."""
     import torch
     from particlemethod_fsi_tpu_torch.ops import windows as pw
 
@@ -1216,7 +1522,7 @@ def time_diagnostics(sim, state, backend: str, scene: str = "bench") -> dict:
     counts = dict(pw.launch_counts)
     events, sim.profile_events = sim.profile_events, None
     if counts != expect_counts(backend, 0, 1):
-        fail(f"diagnostics at 1M ({scene}, {backend}): launch counts "
+        fail(f"diagnostics at {SCALE[scene]} ({scene}, {backend}): launch counts "
              f"{counts}")
     spans = {name: a.elapsed_time(b)
              for (_, a), (name, b) in zip(events, events[1:])}
@@ -1224,8 +1530,9 @@ def time_diagnostics(sim, state, backend: str, scene: str = "bench") -> dict:
     device_ms = sum(spans.values())
     if not (np.isfinite(d["virial_pressure"]).all()
             and float(np.abs(d["virial_pressure"]).max()) > 0):
-        fail("diagnostics at 1M: virial pressure is zero or not finite")
-    print(f"diagnostics at 1M ({scene}, {backend}), ms by section of one "
+        fail(f"diagnostics at {SCALE[scene]}: virial pressure is zero or not "
+             "finite")
+    print(f"diagnostics at {SCALE[scene]} ({scene}, {backend}), ms by section of one "
           "call (CUDA "
           "events): " + json.dumps({k: round(v, 3) for k, v in spans.items()})
           + f"; device sum {device_ms:.3f}; host clock: device work and "
@@ -1363,9 +1670,10 @@ def _vtk_block(data: bytes, header: bytes, n: int, skip_lines: int):
 
 
 def run_cli_path(tmp: str, backend: str, cli_steps: int, scene="bench"):
-    """Write a 1M scene (the bench scene or the Turek channel) as files,
-    run the command line on them on the card with ``--backend`` for one
-    output interval of ``cli_steps`` steps, and check what it wrote."""
+    """Write a full-size scene (the bench scene, the Turek channel or
+    ``cases/gate3d``) as files, run the command line on them on the card
+    with ``--backend`` for one output interval of ``cli_steps`` steps, and
+    check what it wrote."""
     import torch
     from particlemethod_fsi_tpu_torch import cli
     from particlemethod_fsi_tpu_torch.io import native
@@ -1385,6 +1693,9 @@ def run_cli_path(tmp: str, backend: str, cli_steps: int, scene="bench"):
     if scene == "bench":
         cfg0, grid0, module, margin = (bench_config(backend=backend),
                                        bench_grid(N_SIDE), "dam", "0.5")
+    elif scene == "gate3d":
+        cfg0, grid0 = gate3d_case(backend)
+        module, margin = "dam", "0.5"
     else:
         cfg0, grid0, module, margin = (turek_config(TUREK_L0, backend=backend),
                                        turek_grid(TUREK_L0), "turek_hron",
@@ -1442,8 +1753,12 @@ def run_cli_path(tmp: str, backend: str, cli_steps: int, scene="bench"):
     want_counts = expect_counts(backend, steps, 2)
     if counts != want_counts:
         fail(f"cli path: launch counts {counts}, expected {want_counts}")
+    # neighbours within the support (+ margin): some 20-30 in 2-D, 100 in
+    # 3-D
+    nbr_lo, nbr_hi = (10, 60) if cfg.two_dimensional else (40, 200)
     for m in dumps:
-        if not (10 <= m["neighbor_max"] <= 60 and np.isfinite(m["max_speed"])
+        if not (nbr_lo <= m["neighbor_max"] <= nbr_hi
+                and np.isfinite(m["max_speed"])
                 and 0 <= m["max_speed"] < 5.0 and m["cell_overflow"] > 0
                 and m["window_len"] > 0 and m["ghost_overflow"] == 0):
             fail(f"cli path: metrics out of range: {m}")
@@ -1815,6 +2130,11 @@ def main() -> int:
     print("kernels 1-6 on a ghost-extended frame with every unfilled ghost "
           "slot in every window (double, Turek channel at 20 mm): ok; "
           "largest error over row scale: " + json.dumps(ghost_err))
+    planes_err = check_planes_in_windows(device)
+    print("kernels 1-6 on plane-padded 3-D frames of the solver's frame path "
+          "(double; windows across plane ends, plane pads in receivers' ring "
+          "runs, ghost rows and plane pads in one frame): ok; largest error "
+          "over row scale: " + json.dumps(planes_err))
     probe_err = check_microbench()
     print(f"probe (kernel 7) against its twin at {PROBE_TRIPS} trips: ok, one "
           "launch a call, two launches bit-equal, every term equal to the "
@@ -1825,7 +2145,7 @@ def main() -> int:
         return 0
 
     for backend in ("pallas_t", "pallas"):
-        pos_err, rebuilds = check_small_scene(backend)
+        _, pos_err, rebuilds = check_small_scene(backend)
         print(f"small coupled scene ({backend}; 880 particles, float64, 10 "
               f"steps): card against CPU ok, max |pos| difference "
               f"{pos_err:.3e}, rebuilds {rebuilds}")
@@ -1844,6 +2164,12 @@ def main() -> int:
               + ", ".join(f"{p:.3e} m and {v:.3e} m/s"
                           for p, v in gaps.values()))
 
+    for backend in ("pallas_t", "pallas"):
+        n3, err3, rebuilds3 = check_small_scene(backend, three_d=True)
+        print(f"3-D dam break ({backend}; n_side 8, {n3} particles, "
+              f"plane-padded frames, float64, 10 steps): card against CPU ok, "
+              f"max |pos| difference {err3:.3e}, rebuilds {rebuilds3}")
+
     tmp = tempfile.mkdtemp(prefix="fsi_smoke_")
     paths, launches = {}, {}
     try:
@@ -1853,13 +2179,24 @@ def main() -> int:
                   f"steps on the card) against the reference binary's "
                   f"golden: max position difference {gate_err:.3e} m (bar "
                   f"2.0e-6)")
+        for backend, steps in (("pallas_t", 500), ("pallas", 100)):
+            n_roll, dp, dw = check_rolling_golden(tmp, backend, steps)
+            print(f"rolling case ({backend}; {n_roll} particles, rocking "
+                  f"walls, float64, {steps} steps on the card) against the "
+                  f"reference binary's golden: max position difference "
+                  f"{dp:.3e} m, wall rows {dw:.3e} m (bars 2.0e-5)")
+        n_bar, tip_err, peak = check_bar_golden(tmp, "pallas_t")
+        print(f"bar case (pallas_t; {n_bar} particles, first-mode profile, "
+              f"float64, 100 steps on the card): tip within {tip_err:.3e} m "
+              f"of the reference binary's trajectory ({tip_err / peak:.3%} "
+              f"of its peak {peak:.4e} m; bar 1 %)")
 
-        # each 1M scene on each backend: the field-major backend runs
+        # each full-size scene on each backend: the field-major backend runs
         # kernels 1-3, the row-major one kernels 4-6; each path is driven
         # with the counts at 0 and read just after, and so is each
         # diagnostics call
-        rows = {"bench": [], "turek": []}
-        for scene in ("bench", "turek"):
+        rows = {"bench": [], "turek": [], "gate3d": [], "dam3d": []}
+        for scene in rows:
             for backend in ("pallas_t", "pallas"):
                 sim, state, counts, paths[f"{scene}/{backend}"] = run_path(
                     backend, scene)
@@ -1888,26 +2225,31 @@ def main() -> int:
             tmp, "pallas", CLI_ROWS_STEPS).items() if k.endswith("_rows")})
         torch.cuda.empty_cache()
         turek_cli_counts = run_cli_path(tmp, "pallas_t", CLI_STEPS, "turek")
+        torch.cuda.empty_cache()
+        gate3d_cli_counts = run_cli_path(tmp, "pallas_t", CLI_STEPS, "gate3d")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     probe_row = time_microbench()
     # launches: of each backend's step path for the step kernels, of its
     # diagnostics call for the virial; the Turek channel's numbers beside
     # the bench scene's; the command-line paths' counts beside them
-    turek = {row["name"]: row for row in rows["turek"]}
+    other = {scene: {row["name"]: row for row in rows[scene]}
+             for scene in ("turek", "gate3d", "dam3d")}
+    scene_cli = {"turek": turek_cli_counts, "gate3d": gate3d_cli_counts}
     for row in rows["bench"]:
         name = row["name"]
         row["launches"] = launches[("bench", name)]
         row["launches_cli_path"] = cli_counts[name]
-        tk = turek[name]
-        row["turek"] = {k: tk[k] for k in (
-            "ms", "cold_l2_ms", "plain_ms", "bound_ms", "bound_by",
-            "max_abs_err", "roofline_share", "bound_bytes",
-            "ring_senders_tested_per_receiver", "senders_passed_per_receiver")
-            if k in tk}
-        row["turek"]["launches"] = launches[("turek", name)]
-        if name.endswith("_sweep"):
-            row["turek"]["launches_cli_path"] = turek_cli_counts[name]
+        for scene in other:
+            tk = other[scene][name]
+            row[scene] = {k: tk[k] for k in (
+                "ms", "cold_l2_ms", "plain_ms", "bound_ms", "bound_by",
+                "max_abs_err", "roofline_share", "bound_bytes",
+                "ring_senders_tested_per_receiver",
+                "senders_passed_per_receiver") if k in tk}
+            row[scene]["launches"] = launches[(scene, name)]
+            if name.endswith("_sweep") and scene in scene_cli:
+                row[scene]["launches_cli_path"] = scene_cli[scene][name]
     rows = rows["bench"] + [probe_row]
 
     print(json.dumps({"paths": paths}))

@@ -31,8 +31,6 @@ Where it differs from the JAX command, and why:
   (capacity overflow warned of and reset, ``refresh_ghosts``); besides, the
   step itself rebuilds the plan where an axis starts to wrap inside a chunk,
   and the log says so at the chunk's end.
-* ``--apply-velocity-profile`` and ``--bar-amplitude`` are parsed, and
-  ``Simulation`` raises for them by name until the scene modules are ported.
 """
 
 from __future__ import annotations
@@ -85,8 +83,7 @@ def build_parser():
                    help="override the .data ElasticDt (scales with l0 like "
                         "Dt; the substep count is dt/elastic_dt)")
     p.add_argument("--apply-velocity-profile", action="store_true",
-                   help="apply the scene's initial velocity profile at t=0 "
-                        "(not ported yet: raises)")
+                   help="apply the scene's initial velocity profile at t=0")
     p.add_argument("--no-double-substep", action="store_true",
                    help="disable quirk Q1 (the reference's duplicated "
                         "substep position update, src/main.cpp:2045-2079): "

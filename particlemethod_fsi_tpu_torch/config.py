@@ -16,6 +16,7 @@ file (``src/main.cpp:729-786``) and compile-time module flags
 from __future__ import annotations
 
 import dataclasses
+import math
 from dataclasses import dataclass, field
 from typing import Optional
 
@@ -226,3 +227,14 @@ class CaseConfig:
 
     def replace(self, **kw) -> "CaseConfig":
         return dataclasses.replace(self, **kw)
+
+
+def bar_mode_shape(x: float, kl: float, length: float) -> float:
+    """Euler-Bernoulli cantilever first-mode shape f(x) (src/main.cpp:387-392):
+    (cos kL + cosh kL)(cosh kx - cos kx) + (sin kL - sinh kL)(sinh kx - sin kx)
+    """
+    k = kl / length
+    kx = k * x
+    term1 = (math.cos(kl) + math.cosh(kl)) * (math.cosh(kx) - math.cos(kx))
+    term2 = (math.sin(kl) - math.sinh(kl)) * (math.sinh(kx) - math.sin(kx))
+    return term1 + term2

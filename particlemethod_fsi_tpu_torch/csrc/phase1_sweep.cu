@@ -10,7 +10,8 @@
 //   particlemethod_fsi_tpu/ops/pallas_pairwise.py `_phase1_kernel` (reached
 //   through `phase1_fields_pallas` -> `_pallas_sweep`; kernel 4): the ring
 //   recomputed from positions, pad senders and j == i rejected, every pair
-//   within the support, the count always (see window_sweep.cuh).
+//   within the support, the count always (see window_sweep.cuh); the key
+//   finds the ring runs only.
 // Every branch of both is here: planar or not, surface tension or not and
 // the pair rule as template parameters; per-pair interaction ratios,
 // non-uniform radii and the count as launch parameters (uniform branches).
@@ -36,17 +37,19 @@
 // window_sweep.cuh: the frame is sorted by key, so the senders in a
 // receiver's ring for one offset are one run of rows.  A block stages the
 // windows of all its offsets together, in chunks (FsiChunk), by cp.async,
-// one array a field: x, y, vx, vy (z, vz in 3-D), and the key -- or, under
-// the row rule, which has no key argument, the linear cell of each sender
-// computed from its staged position (INT_MIN for a pad), which on a frame
-// sorted from these positions is the valid senders' key, and a pad's
-// INT_MIN searched as unsigned sorts last, as its key num_cells does; the
-// type where interaction ratios are on, or for the row rule's pad test.
-// Each receiver finds its run in each window's part of the chunk by two
-// binary searches and walks only that run (a third of the window at the
-// bench scene), in batches of 32: a branch-free pre-test -- the first
-// design's exact mask: the ring (key within one of key_i + off, or the
-// linear cell in fsi_ring with j != i), rij2 > 0 and rij2 <= reach2,
+// one array a field: x, y, vx, vy (z, vz in 3-D), and the key -- under the
+// row rule also the linear cell of each sender computed from its staged
+// position (INT_MIN for a pad, in no ring); the type where interaction
+// ratios are on, or for the row rule's pad test.  Each receiver finds its
+// run in each window's part of the chunk by two binary searches on the
+// staged keys (under the row rule, for the linear cells of fsi_ring: on a
+// frame sorted from these positions they are the valid senders' keys, and
+// a plane pad's key, the last cell of its plane, keeps the keys sorted
+// where a window spans a plane end) and walks only that run (a third of
+// the window at the bench scene), in batches of 32: a branch-free pre-test
+// -- the first design's exact mask: the ring (key within one of
+// key_i + off, or the linear cell in fsi_ring with j != i), rij2 > 0 and
+// rij2 <= reach2,
 // inclusive as every phase-1 radius test is -- sets one bit a sender, and
 // the body runs over the set bits in ascending order.  Each receiver sums
 // the same terms as the first design in the same order (offsets in order,
@@ -69,7 +72,8 @@ template <typename T>
 struct Phase1Params {
   const T* pos;         // [N,3]
   const T* vel;         // [N,3]
-  const int* key;       // [N] (field-major rule only)
+  const int* key;       // [N] sorted: the ring runs (both rules) and the
+                        // field-major rule's ring test
   const int* prop;      // [N]
   const int* win_start; // [nblocks, n_off]
   const int* win_len;   // [nblocks, n_off]
@@ -98,10 +102,8 @@ __global__ void phase1_sweep_kernel(const Phase1Params<T> p) {
   // the chunk, one array a field (lanes read different senders)
   __shared__ T s_x[CAP], s_y[CAP], s_z[CAP_Z];
   __shared__ T s_vx[CAP], s_vy[CAP], s_vz[CAP_Z];
-  // key rule: the sort key; row rule: the linear cell from the staged
-  // position (INT_MIN for a pad).  Sorted within each window: the run
-  // searches.
-  __shared__ int s_key[CAP];
+  __shared__ int s_key[CAP];  // sorted within each window: the run searches
+  __shared__ int s_lin[ROWS ? CAP : 1];  // row rule: the linear cell
   __shared__ int s_prop[(ST || ROWS) ? CAP : 1];
   __shared__ T s_ratio[FSI_TYPE_COUNT * FSI_TYPE_COUNT];
   // where each offset's window starts in the concatenation of all windows
@@ -119,7 +121,7 @@ __global__ void phase1_sweep_kernel(const Phase1Params<T> p) {
 
   const T xi = p.pos[3 * i], yi = p.pos[3 * i + 1], zi = p.pos[3 * i + 2];
   const T vxi = p.vel[3 * i], vyi = p.vel[3 * i + 1], vzi = p.vel[3 * i + 2];
-  const int key_i = ROWS ? 0 : p.key[i];
+  const int key_i = p.key[i];
   const int type_i = fsi_clip_type(p.prop[i]);
   int cxi = 0, cyi = 0, czi = 0;
   if (ROWS) {
@@ -162,12 +164,12 @@ __global__ void phase1_sweep_kernel(const Phase1Params<T> p) {
         fsi_async_copy(s_z + s, p.pos + 3 * r + 2);
         fsi_async_copy(s_vz + s, p.vel + 3 * r + 2);
       }
-      if (!ROWS) fsi_async_copy(s_key + s, p.key + r);
+      fsi_async_copy(s_key + s, p.key + r);
       if (ROWS || with_ratio) fsi_async_copy(s_prop + s, p.prop + r);
     });
     fsi_async_wait();
     if (ROWS)
-      fsi_chunk_lin<T, PLANAR>(s_key, s_x, s_y, s_z, s_prop, p.pos, s_cum,
+      fsi_chunk_lin<T, PLANAR>(s_lin, s_x, s_y, s_z, s_prop, p.pos, s_cum,
                                win_start, p.n_off, v0, v1, p.g);
     __syncthreads();
 
@@ -177,21 +179,18 @@ __global__ void phase1_sweep_kernel(const Phase1Params<T> p) {
       // frame row of chunk index 0
       const int row0 = v0 + win_start[o] - s_cum[o];
       // This receiver's ring run within the chunk's part of the window,
-      // [j0, j1): the values of its ring are one interval [vlo, vhi] (key
-      // rule: the keys key_i + off +- 1; row rule: the linear cells of
-      // fsi_ring, compared as unsigned so that a pad sorts last), and the
-      // window is sorted by them, so two lower bounds find it.
+      // [j0, j1): the keys of its ring are one interval [vlo, vhi] (key
+      // rule: key_i + off +- 1; row rule: the linear cells of fsi_ring,
+      // which on a frame sorted from these positions are the valid
+      // senders' keys), and the window is sorted by key, so two lower
+      // bounds find it.
       const int ring_centre = key_i + p.offs[o];
       const FsiRing ring = ROWS ? fsi_ring(cxi, cyi, czi, o, p.g) : FsiRing{};
-      int j0, j1;
-      if (ROWS) {
-        j0 = fsi_lower_bound<unsigned>(s_key, a - v0, e - v0, ring.lo);
-        j1 = fsi_lower_bound<unsigned>(
-            s_key, j0, e - v0, ring.lo + static_cast<int>(ring.span) + 1);
-      } else {
-        j0 = fsi_lower_bound(s_key, a - v0, e - v0, ring_centre - 1);
-        j1 = fsi_lower_bound(s_key, j0, e - v0, ring_centre + 2);
-      }
+      const int vlo = ROWS ? ring.lo : ring_centre - 1;
+      const int vhi = ROWS ? ring.lo + static_cast<int>(ring.span)
+                           : ring_centre + 1;
+      const int j0 = fsi_lower_bound(s_key, a - v0, e - v0, vlo);
+      const int j1 = fsi_lower_bound(s_key, j0, e - v0, vhi + 1);
       // pre-test, branch-free: the exact mask of a walk of the whole window
       // (the run only leaves out senders it rejects); every phase-1 radius
       // test is inclusive, rij2 <= radius^2
@@ -205,7 +204,7 @@ __global__ void phase1_sweep_kernel(const Phase1Params<T> p) {
         }
         bool ok = (rij2 > T(0)) & !(rij2 > reach2);
         if (ROWS)
-          ok = ok & fsi_in_ring(s_key[j], ring) & (row0 + j != i);
+          ok = ok & fsi_in_ring(s_lin[j], ring) & (row0 + j != i);
         else  // the key within one of the ring's centre
           ok = ok & (static_cast<unsigned>(s_key[j] - ring_centre + 1) <= 2u);
         return ok;
@@ -381,9 +380,12 @@ extern "C" int fsi_phase1_sweep(int is_double, const void* pos,
 // Plain C entry point of kernel 4 (row-major rule; the count is always
 // produced).  offs_yz holds (oy, oz) of each row offset (2 n_off ints), geom
 // the grid's domain_min and cell_width (6 doubles), ncell its cell_count (3
-// ints); all three are host arrays, like consts and ratio.
+// ints); all three are host arrays, like consts and ratio.  The key finds
+// the ring runs only, and must be the one the frame was sorted by, from
+// these positions (plane pads keyed as pad_frame_planes keys them).
 extern "C" int fsi_phase1_rows(int is_double, const void* pos, const void* vel,
-                               const void* prop, const void* win_start,
+                               const void* key, const void* prop,
+                               const void* win_start,
                                const void* win_len, void* out, int n,
                                int block, int n_off, const int* offs_yz,
                                const double* geom, const int* ncell,
@@ -393,12 +395,12 @@ extern "C" int fsi_phase1_rows(int is_double, const void* pos, const void* vel,
   if (!phase1_args_ok(n, block, n_off)) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_double)
-    return launch_phase1<double>(pos, vel, nullptr, prop, win_start, win_len,
+    return launch_phase1<double>(pos, vel, key, prop, win_start, win_len,
                                  out, n, block, n_off, nullptr, offs_yz, geom,
                                  ncell, consts, ratio, planar,
                                  surface_tension, with_ratio, uniform_radii, 1,
                                  s);
-  return launch_phase1<float>(pos, vel, nullptr, prop, win_start, win_len, out,
+  return launch_phase1<float>(pos, vel, key, prop, win_start, win_len, out,
                               n, block, n_off, nullptr, offs_yz, geom, ncell,
                               consts, ratio, planar, surface_tension,
                               with_ratio, uniform_radii, 1, s);

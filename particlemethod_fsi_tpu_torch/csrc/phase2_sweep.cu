@@ -37,11 +37,14 @@
 // ring for one offset are one run of rows -- key rule, the keys
 // key_i + off - 1 .. key_i + off + 1; row rule, the linear cells of fsi_ring,
 // which on a frame sorted from these positions are the valid senders' keys
-// (a pad's key, num_cells, lies in no ring).  A block stages the windows of
-// all its offsets together, in chunks of FsiChunk senders, by cp.async, one
-// array a field, the key included; each receiver then finds its run within
-// each window's part of the chunk by two binary searches on the staged keys
-// and walks only that run (a third of the window at the bench scene; the
+// (the tail's pads, key num_cells, lie in no ring; a 3-D frame's plane pads,
+// keyed with their plane's last cell, may lie in a run, and the pre-test's
+// ring test on their staged linear cell, INT_MIN, rejects them).  A block
+// stages the windows of all its offsets together, in chunks of FsiChunk
+// senders, by cp.async, one array a field, the key included; each receiver
+// then finds its run within each window's part of the chunk by two binary
+// searches on the staged keys and walks only that run (a third of the
+// window at the bench scene; the
 // checking build -DFSI_WALK_COUNT counts it, PERF.md), in batches of 32: a
 // branch-free pre-test (the whole-window walk's exact mask: ring, rij2 > 0,
 // the radius, and for the row rule j != i and the support) sets one bit a
@@ -474,8 +477,9 @@ extern "C" int fsi_phase2_sweep(int is_double, const void* pos,
 // itself; offs_yz (2 n_off ints), geom (domain_min and cell_width, 6
 // doubles) and ncell (3 ints) are host arrays, support2 the squared frame
 // support.  The key finds the ring runs only, and must be the one the frame
-// was sorted by from these positions (packed_engine.sort_frame): every
-// valid row's key is then its linear cell.  Otherwise as fsi_phase2_sweep.
+// was sorted by from these positions (packed_engine.sort_frame, then
+// pad_frame_planes in 3-D): every valid row's key is then its linear cell.
+// Otherwise as fsi_phase2_sweep.
 extern "C" int fsi_phase2_rows(int is_double, const void* pos, const void* vel,
                                const void* key, const void* prop,
                                const void* pp,

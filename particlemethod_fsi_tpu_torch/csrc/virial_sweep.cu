@@ -15,7 +15,7 @@
 //   through `virial_pallas`; kernel 6): the ring from positions, pad senders
 //   and j == i rejected, pairs within the support only (see
 //   window_sweep.cuh), and mu_h = 2 mu_i mu_j / (mu_i + mu_j) from mu itself
-//   (0 where that sum is not positive).
+//   (0 where that sum is not positive); the key finds the ring runs only.
 // Every branch of both is here: planar or not, surface tension or not and
 // the pair rule as template parameters; per-pair interaction ratios and
 // non-uniform radii as launch parameters (uniform branches).  Unlike phase
@@ -45,10 +45,10 @@
 // receiver's ring for one offset are one run of rows.  A block stages the
 // windows of all its offsets together, in chunks (FsiChunk), by cp.async,
 // one array a field, only what the virial reads of a sender: x, y, vx, vy
-// (z, vz in 3-D), mu or 1/mu, and the key -- or, under the row rule, which
-// has no key argument, the linear cell of each sender computed from its
-// staged position (INT_MIN for a pad) and searched as unsigned, as kernel 4
-// does; the type for the row rule's pad test and the interaction ratios.
+// (z, vz in 3-D), mu or 1/mu, and the key -- under the row rule also the
+// linear cell of each sender computed from its staged position (INT_MIN for
+// a pad, in no ring), as kernels 4 and 5 stage it; the type for the row
+// rule's pad test and the interaction ratios.
 // The receiver's pressures, gravity centre and surface-tension coefficient
 // stay in registers.  Each receiver finds its run in each window's part of
 // the chunk by two binary searches and walks only that run, in batches of
@@ -76,7 +76,8 @@ template <typename T>
 struct VirialParams {
   const T* pos;         // [N,3]
   const T* vel;         // [N,3]
-  const int* key;       // [N] (field-major rule only)
+  const int* key;       // [N] sorted: the ring runs (both rules) and the
+                        // field-major rule's ring test
   const int* prop;      // [N]
   const T* pp;          // [N] pressure P (receiver side only)
   const T* pa;          // [N] pressure A (receiver side, surface tension only)
@@ -112,10 +113,8 @@ __global__ void virial_sweep_kernel(const VirialParams<T> p) {
   __shared__ T s_x[CAP], s_y[CAP], s_z[CAP_Z];
   __shared__ T s_vx[CAP], s_vy[CAP], s_vz[CAP_Z];
   __shared__ T s_visc[CAP];
-  // key rule: the sort key; row rule: the linear cell from the staged
-  // position (INT_MIN for a pad).  Sorted within each window: the run
-  // searches.
-  __shared__ int s_key[CAP];
+  __shared__ int s_key[CAP];  // sorted within each window: the run searches
+  __shared__ int s_lin[ROWS ? CAP : 1];  // row rule: the linear cell
   __shared__ int s_prop[(ST || ROWS) ? CAP : 1];
   __shared__ T s_ratio[FSI_TYPE_COUNT * FSI_TYPE_COUNT];
   // where each offset's window starts in the concatenation of all windows
@@ -133,7 +132,7 @@ __global__ void virial_sweep_kernel(const VirialParams<T> p) {
 
   const T xi = p.pos[3 * i], yi = p.pos[3 * i + 1], zi = p.pos[3 * i + 2];
   const T vxi = p.vel[3 * i], vyi = p.vel[3 * i + 1], vzi = p.vel[3 * i + 2];
-  const int key_i = ROWS ? 0 : p.key[i];
+  const int key_i = p.key[i];
   const int type_i = fsi_clip_type(p.prop[i]);
   const T pp_i = p.pp[i];
   const T visc_i = p.visc[i];
@@ -187,12 +186,12 @@ __global__ void virial_sweep_kernel(const VirialParams<T> p) {
         fsi_async_copy(s_vz + s, p.vel + 3 * r + 2);
       }
       fsi_async_copy(s_visc + s, p.visc + r);
-      if (!ROWS) fsi_async_copy(s_key + s, p.key + r);
+      fsi_async_copy(s_key + s, p.key + r);
       if (ROWS || with_ratio) fsi_async_copy(s_prop + s, p.prop + r);
     });
     fsi_async_wait();
     if (ROWS)
-      fsi_chunk_lin<T, PLANAR>(s_key, s_x, s_y, s_z, s_prop, p.pos, s_cum,
+      fsi_chunk_lin<T, PLANAR>(s_lin, s_x, s_y, s_z, s_prop, p.pos, s_cum,
                                win_start, p.n_off, v0, v1, p.g);
     __syncthreads();
 
@@ -202,24 +201,20 @@ __global__ void virial_sweep_kernel(const VirialParams<T> p) {
       // frame row of chunk index 0
       const int row0 = v0 + win_start[o] - s_cum[o];
       // This receiver's ring run within the chunk's part of the window,
-      // [j0, j1): the values of its ring are one interval (key rule: the
-      // keys key_i + off +- 1; row rule: the linear cells of fsi_ring,
-      // compared as unsigned so that a pad's INT_MIN sorts last), and the
-      // window is sorted by them, so two lower bounds find it.  The row
-      // rule's search is exact on a frame sorted from these positions, where
-      // every valid sender's linear cell is its key: the diagnostics always
-      // build such a frame (Simulation._diagnostics, on both backends).
+      // [j0, j1): the keys of its ring are one interval [vlo, vhi] (key
+      // rule: key_i + off +- 1; row rule: the linear cells of fsi_ring),
+      // and the window is sorted by key, so two lower bounds find it.  The
+      // row rule's search is exact on a frame sorted from these positions,
+      // where every valid sender's linear cell is its key: the diagnostics
+      // always build such a frame (Simulation._diagnostics, on both
+      // backends).
       const int ring_centre = key_i + p.offs[o];
       const FsiRing ring = ROWS ? fsi_ring(cxi, cyi, czi, o, p.g) : FsiRing{};
-      int j0, j1;
-      if (ROWS) {
-        j0 = fsi_lower_bound<unsigned>(s_key, a - v0, e - v0, ring.lo);
-        j1 = fsi_lower_bound<unsigned>(
-            s_key, j0, e - v0, ring.lo + static_cast<int>(ring.span) + 1);
-      } else {
-        j0 = fsi_lower_bound(s_key, a - v0, e - v0, ring_centre - 1);
-        j1 = fsi_lower_bound(s_key, j0, e - v0, ring_centre + 2);
-      }
+      const int vlo = ROWS ? ring.lo : ring_centre - 1;
+      const int vhi = ROWS ? ring.lo + static_cast<int>(ring.span)
+                           : ring_centre + 1;
+      const int j0 = fsi_lower_bound(s_key, a - v0, e - v0, vlo);
+      const int j1 = fsi_lower_bound(s_key, j0, e - v0, vhi + 1);
       // pre-test, branch-free: phase 2's, the exact mask of a walk of the
       // whole window (the run only leaves out senders it rejects); every
       // family mask is the strict radius^2 - rij2 > 0
@@ -233,7 +228,7 @@ __global__ void virial_sweep_kernel(const VirialParams<T> p) {
         }
         bool ok = (rij2 > T(0)) & (rij2 < reach2);
         if (ROWS)
-          ok = ok & fsi_in_ring(s_key[j], ring) & (row0 + j != i) &
+          ok = ok & fsi_in_ring(s_lin[j], ring) & (row0 + j != i) &
                !(rij2 > p.support2);
         else  // the key within one of the ring's centre
           ok = ok & (static_cast<unsigned>(s_key[j] - ring_centre + 1) <= 2u);
@@ -477,7 +472,8 @@ extern "C" int fsi_virial_sweep(int is_double, const void* pos,
 // Plain C entry point of kernel 6 (row-major rule), with the argument list
 // of fsi_phase2_rows.
 extern "C" int fsi_virial_rows(int is_double, const void* pos, const void* vel,
-                               const void* prop, const void* pp,
+                               const void* key, const void* prop,
+                               const void* pp,
                                const void* pa, const void* gc, const void* mu,
                                const void* win_start, const void* win_len,
                                void* out, int n, int block, int n_off,
@@ -490,13 +486,13 @@ extern "C" int fsi_virial_rows(int is_double, const void* pos, const void* vel,
   if (!virial_args_ok(n, block, n_off, surface_tension, pa, gc)) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_double)
-    return launch_virial<double>(pos, vel, nullptr, prop, pp, pa, gc, mu,
+    return launch_virial<double>(pos, vel, key, prop, pp, pa, gc, mu,
                                  win_start, win_len, out, n, block, n_off,
                                  nullptr, offs_yz, geom, ncell, support2,
                                  consts, ratio, cof_a, planar,
                                  surface_tension, uniform_ratio,
                                  uniform_radii, s);
-  return launch_virial<float>(pos, vel, nullptr, prop, pp, pa, gc, mu,
+  return launch_virial<float>(pos, vel, key, prop, pp, pa, gc, mu,
                               win_start, win_len, out, n, block, n_off,
                               nullptr, offs_yz, geom, ncell, support2, consts,
                               ratio, cof_a, planar, surface_tension,

@@ -15,9 +15,9 @@
 //   coordinate within one of the receiver's in x and exactly (oy, oz) away
 //   in y (z) -- and the pair also needs prop_j >= 0 (pad rows carry the
 //   sentinel key but their position may lie inside the fluid), j != i and
-//   rij2 <= support^2.  The pair rule reads no key: kernel 5 takes the key
-//   to find its runs only, and kernels 4 and 6, which have no key argument,
-//   find them from each sender's linear cell.
+//   rij2 <= support^2.  The pair rule reads no key: kernels 4-6 take the
+//   sorted key to find their runs only (the frame must be sorted from its
+//   own positions, where every valid row's key is its linear cell).
 //
 // Every family then applies its own radius test.
 //
@@ -187,8 +187,18 @@ __device__ __forceinline__ void fsi_chunk_rows(const int* s_cum,
 
 // The row rule's linear cell of each sender this thread staged, from its own
 // staged copies (the sort key's true divide; INT_MIN for a pad, in no
-// ring); z from device memory where the planar instance stages none.  Call
-// after fsi_async_wait(), before the __syncthreads() that publishes it.
+// ring), for the ring test; z from device memory where the planar instance
+// stages none.  Call after fsi_async_wait(), before the __syncthreads()
+// that publishes it.
+//
+// The runs are searched in the staged keys, not in these cells.  A pad's
+// INT_MIN, read as unsigned, would sort after every cell only while pads
+// sit at the frame's end (the sort's tail, key num_cells); a 3-D frame has
+// pad rows at every plane's end (pad_frame_planes, key the plane's last
+// cell), and a window of the last block of plane k reaches into plane
+// k + 1, so its staged cells read [plane k, INT_MIN pads, plane k + 1]:
+// not sorted, and a search in them could skip a receiver's run.  The keys
+// stay sorted there.
 template <typename T, bool PLANAR>
 __device__ __forceinline__ void fsi_chunk_lin(
     int* s_lin, const T* s_x, const T* s_y, const T* s_z, const int* s_prop,
@@ -208,15 +218,12 @@ __device__ __forceinline__ void fsi_chunk_lin(
 }
 
 // First index r in [lo, hi) with key[r] >= v, or hi: a lower bound on keys
-// sorted over [lo, hi), compared as U: int for sort keys; unsigned for the
-// row rule's staged linear cells, where a pad's INT_MIN then sorts after
-// every cell, as its key num_cells does.
-template <typename U = int>
+// sorted over [lo, hi).
 __device__ __forceinline__ int fsi_lower_bound(const int* key, int lo, int hi,
                                                int v) {
   while (lo < hi) {
     const int mid = lo + ((hi - lo) >> 1);
-    if (static_cast<U>(key[mid]) < static_cast<U>(v))
+    if (key[mid] < v)
       lo = mid + 1;
     else
       hi = mid;

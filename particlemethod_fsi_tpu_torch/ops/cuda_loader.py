@@ -111,26 +111,26 @@ def _declare(lib: ctypes.CDLL) -> None:
     # the virial sweep takes the argument list of phase 2
     lib.fsi_virial_sweep.restype = ci
     lib.fsi_virial_sweep.argtypes = list(lib.fsi_phase2_sweep.argtypes)
-    # the row-major entry points (kernels 4-6): no key; the ring's geometry
-    # (offs_yz, domain_min + cell_width, cell_count) in its place
-    lib.fsi_phase1_rows.restype = ci
-    lib.fsi_phase1_rows.argtypes = [
-        ci, vp, vp, vp, vp, vp, vp,  # is_double, pos vel prop ws wl out
-        ci, ci, ci, ip, dp, ip, dp, dp,  # n block n_off offs_yz geom ncell consts ratio
-        ci, ci, ci, ci, vp,  # planar st with_ratio uniform_radii stream
-    ]
-    lib.fsi_virial_rows.restype = ci
-    lib.fsi_virial_rows.argtypes = [
-        ci, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp,  # .. pp pa gc mu ws wl out
+    # the row-major entry points (kernels 4-6): the sorted key finds the
+    # ring runs; the ring's geometry (offs_yz, domain_min + cell_width,
+    # cell_count) in place of offs
+    lib.fsi_phase2_rows.restype = ci
+    lib.fsi_phase2_rows.argtypes = [
+        ci, vp, vp, vp, vp,  # is_double, pos vel key prop
+        vp, vp, vp, vp, vp, vp, vp,  # pp pa gc mu ws wl out
         ci, ci, ci, ip, dp, ip,  # n block n_off offs_yz geom ncell
         dp, dp, dp, ctypes.c_double,  # consts ratio cof_a support2
         ci, ci, ci, ci, vp,  # planar st uniform_ratio uniform_radii stream
     ]
-    # phase 2 also takes the sorted key, from which it finds the ring runs
-    lib.fsi_phase2_rows.restype = ci
-    lib.fsi_phase2_rows.argtypes = [
-        *lib.fsi_virial_rows.argtypes[:3], vp,  # is_double pos vel key
-        *lib.fsi_virial_rows.argtypes[3:]]
+    # the row-major virial takes the argument list of the row-major phase 2
+    lib.fsi_virial_rows.restype = ci
+    lib.fsi_virial_rows.argtypes = list(lib.fsi_phase2_rows.argtypes)
+    lib.fsi_phase1_rows.restype = ci
+    lib.fsi_phase1_rows.argtypes = [
+        ci, vp, vp, vp, vp, vp, vp, vp,  # is_double, pos vel key prop ws wl out
+        ci, ci, ci, ip, dp, ip, dp, dp,  # n block n_off offs_yz geom ncell consts ratio
+        ci, ci, ci, ci, vp,  # planar st with_ratio uniform_radii stream
+    ]
     # the occupancy queries and, in a checking build (-DFSI_WALK_COUNT)
     # only, the walk counts; a build of another tree for a comparison may
     # lack some of them

@@ -3,10 +3,9 @@
 Counterpart of ``particlemethod_fsi_tpu/ops/packed_engine.py``.  Ported:
 :class:`SortedFrame`, :func:`_cell_key` (with its :func:`cell_coords`),
 :func:`sort_frame` (the ``with_cell_start=False`` form the window sweeps
-use) and :func:`unsort`.
-The packed candidate engine itself (cell tables, ``phase1_fields``,
-``phase2_forces``, ``packed_virial``) and ``pad_frame_planes`` are not ported
-yet.
+use), :func:`unsort` and :func:`pad_frame_planes` (the 3-D frame's plane
+alignment).  The packed candidate engine itself (cell tables,
+``phase1_fields``, ``phase2_forces``, ``packed_virial``) is not ported yet.
 """
 
 from __future__ import annotations
@@ -17,6 +16,9 @@ import torch
 
 from particlemethod_fsi_tpu_torch.ops.neighbors import CellGrid
 
+# rows a cell plane of a 3-D frame is aligned to; every receiver block size
+# divides it
+PLANE_ALIGN = 256
 
 class SortedFrame(NamedTuple):
     """Per-step sorted particle frame.  The JAX frame's ``cell_start`` and
@@ -74,3 +76,55 @@ def unsort(frame: SortedFrame, *arrays, n: Optional[int] = None):
         o[frame.orig] = a
         out.append(o if n is None else o[:n])
     return out
+
+
+def pad_frame_planes(frame: SortedFrame, grid: CellGrid) -> SortedFrame:
+    """Re-pack a 3-D sorted frame so that every cell plane (z slab) starts
+    at a row that is a multiple of :data:`PLANE_ALIGN`, by pad rows at each plane's
+    end; the frame's own sentinel rows (invalid slots, key ``num_cells``)
+    form a tail region, padded the same way.  No receiver block (block
+    sizes divide :data:`PLANE_ALIGN`) then spans a plane end, which would make its
+    windows span a whole plane.
+
+    Output length ``n + (nz + 1) * PLANE_ALIGN``.  Pad rows carry the last cell of
+    their own plane as key (the tail region's: the sentinel), so keys stay
+    sorted and windows plane-local; type -1; position 1e9 (a plane pad's key
+    is a real cell, so it can enter a ring, and the radius test must reject
+    it) and velocity 0.  Key, type, position and velocity equal the JAX
+    package's row for row.  ``orig`` differs on the pads only: there
+    ``n + row``, which its key-sort unsort takes; here the unused indices
+    ``[n, n_out)`` in row order, so that ``orig`` stays a permutation of the
+    output's rows with every real slot first and :func:`unsort` (a scatter)
+    keeps working."""
+    nx, ny, _ = grid.cell_count
+    plane_cells = nx * ny
+    n_planes = grid.num_cells // plane_cells
+    key_in = frame.key
+    dev = key_in.device
+    n = key_in.shape[0]
+    n_out = n + (n_planes + 1) * PLANE_ALIGN
+    bounds = torch.arange(n_planes + 1, device=dev,
+                          dtype=torch.int32) * plane_cells
+    starts = torch.cat([torch.searchsorted(key_in, bounds),
+                        torch.full((1,), n, device=dev, dtype=torch.int64)])
+    counts = starts[1:] - starts[:-1]  # [nz + 1]: each plane, then the tail
+    padded = (counts + (PLANE_ALIGN - 1)) // PLANE_ALIGN * PLANE_ALIGN
+    ps = torch.cat([torch.zeros(1, device=dev, dtype=torch.int64),
+                    torch.cumsum(padded, 0)])
+    j = torch.arange(n_out, device=dev)
+    q = torch.clamp(torch.searchsorted(ps, j, right=True) - 1, 0, n_planes)
+    off = j - ps[q]
+    src = torch.clamp(starts[q] + off, 0, n - 1)
+    valid = off < counts[q]
+    pad_key = torch.where(q < n_planes, (q + 1) * plane_cells - 1,
+                          grid.num_cells).to(key_in.dtype)
+    key = torch.where(valid, key_in[src], pad_key)
+    prop = torch.where(valid, frame.prop[src],
+                       torch.full_like(frame.prop[src], -1))
+    pad_rank = torch.cumsum((~valid).to(torch.int64), 0) - 1
+    orig = torch.where(valid, frame.orig[src], n + pad_rank)
+    pos = torch.where(valid[:, None], frame.pos[src],
+                      torch.full_like(frame.pos[src], 1.0e9))
+    vel = torch.where(valid[:, None], frame.vel[src],
+                      torch.zeros_like(frame.vel[src]))
+    return SortedFrame(key=key, pos=pos, vel=vel, prop=prop, orig=orig)

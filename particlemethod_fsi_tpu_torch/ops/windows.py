@@ -37,9 +37,10 @@ point of porting them separately:
 * **validity**: ``prop_j >= 0`` (pad rows carry the sentinel key but may sit
   inside the fluid), ``j != i``, ``rij2 > 0`` and ``rij2 <= support^2``
   (every kernel walks only each receiver's ring run, which it finds from
-  the sorted linear cells -- phase 2 from the key, phase 1 and the virial
-  from the cell of each staged position -- and pads, whose key
-  ``num_cells`` lies in no ring, are out of every run before these tests);
+  the sorted key: on a frame sorted from its own positions a valid row's
+  key is its linear cell; the tail's pads, key ``num_cells``, lie in no
+  run, and a 3-D frame's plane pads, keyed with their plane's last cell,
+  are rejected by the ring test on their position);
 * **the neighbour count is always produced**, and ``mu_h = 2 mu_i mu_j /
   (mu_i + mu_j)`` (0 where the sum is not positive) comes from ``mu``
   itself, not from an inverse-viscosity field.
@@ -286,9 +287,9 @@ def ring_runs_rows(frame: SortedFrame, win_start, win_len, grid: CellGrid,
     receiver's cell row ``(cy + oy, cz + oz)``, x from ``cx - 1`` to
     ``cx + 1`` clipped to the grid; empty where that row lies outside it),
     and on a frame sorted from these positions the valid senders in it are
-    the rows whose key lies in that range (a pad's key ``num_cells`` lies in
-    none; kernels 4 and 6 search the linear cells of the staged positions,
-    which are these keys, with a pad's last).  Returns
+    the rows whose key lies in that range (the tail's pads, key
+    ``num_cells``, lie in none; a plane pad of a 3-D frame may, and the
+    ring test on its position rejects it).  Returns
     ``(lo, hi)`` int64 ``[N, n_off]``, clipped to the block's window.  Used
     by the tests and ``chip_smoke.py``; nothing on the main path calls it."""
     cells = cell_coords(frame.pos, grid).long()
@@ -781,8 +782,9 @@ def _phase1_rows_cuda(frame, win_start, win_len, grid, ks, cfg, tables):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.fsi_phase1_rows(
             int(frame.pos.dtype == torch.float64),
-            frame.pos.data_ptr(), frame.vel.data_ptr(), frame.prop.data_ptr(),
-            win_start.data_ptr(), win_len.data_ptr(), out.data_ptr(), n,
+            frame.pos.data_ptr(), frame.vel.data_ptr(), frame.key.data_ptr(),
+            frame.prop.data_ptr(), win_start.data_ptr(), win_len.data_ptr(),
+            out.data_ptr(), n,
             cfg.block, n_off, offs_yz, geom, ncell, _c_doubles(consts),
             _c_doubles(tables.interaction_ratio_host), int(cfg.planar),
             int(cfg.surface_tension), int(with_ratio),
@@ -801,10 +803,9 @@ def phase1_rows_sweep(frame: SortedFrame, win_start, win_len, grid: CellGrid,
     (``csrc/phase1_sweep.cu``, ``fsi_phase1_rows``, replacing the TPU
     ``pallas_pairwise._phase1_kernel``) or the call raises; only a CPU frame
     takes :func:`phase1_rows_sweep_plain`.  The kernel finds each
-    receiver's ring run from the linear cells of the positions
-    (:func:`ring_runs_rows`), so the frame must be sorted from these
-    positions (:func:`packed_engine.sort_frame`; the row-major backend
-    sorts every step)."""
+    receiver's ring run from the key (:func:`ring_runs_rows`), so the frame
+    must be sorted from these positions (:func:`packed_engine.sort_frame`,
+    plane-padded in 3-D; the row-major backend sorts every step)."""
     if frame.pos.is_cuda:
         return _phase1_rows_cuda(frame, win_start, win_len, grid, ks, cfg,
                                  tables)
@@ -836,8 +837,8 @@ def phase1_fields(frame: SortedFrame, grid: CellGrid, ks: KernelSet,
 def _launch_rows(name: str, rows: int, frame, pp, pa, gc, mu, win_start,
                  win_len, grid, ks, cfg, tables, volume, two_dimensional):
     """Launch ``fsi_phase2_rows`` or ``fsi_virial_rows`` (one argument
-    list, and phase 2 also takes the sorted key, from which it finds each
-    receiver's ring run) and return its ``[rows, N]`` output."""
+    list; the sorted key finds each receiver's ring run) and return its
+    ``[rows, N]`` output."""
     n_off, offs_yz, geom, ncell = _rows_geometry(grid)
     _check_frame(frame, win_start, win_len, n_off, cfg.block)
     _check_phase2_fields(frame, pp, pa, gc, mu, cfg, "mu")
@@ -851,10 +852,10 @@ def _launch_rows(name: str, rows: int, frame, pp, pa, gc, mu, win_start,
     st = cfg.surface_tension
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        key = (frame.key.data_ptr(),) if name == "phase2_rows" else ()
         err = getattr(lib, f"fsi_{name}")(
             int(dtype == torch.float64), frame.pos.data_ptr(),
-            frame.vel.data_ptr(), *key, frame.prop.data_ptr(), pp.data_ptr(),
+            frame.vel.data_ptr(), frame.key.data_ptr(), frame.prop.data_ptr(),
+            pp.data_ptr(),
             pa.data_ptr() if st else None, gc.data_ptr() if st else None,
             mu.data_ptr(), win_start.data_ptr(), win_len.data_ptr(),
             out.data_ptr(), n, cfg.block, n_off, offs_yz, geom, ncell,
@@ -892,8 +893,8 @@ def phase2_rows_sweep(frame: SortedFrame, pp, pa, gc, mu, win_start, win_len,
     ``pallas_pairwise._phase2_kernel``) or the call raises; only a CPU frame
     takes :func:`phase2_rows_sweep_plain`.  The kernel finds each
     receiver's ring run from the key (:func:`ring_runs_rows`), so the frame
-    must be sorted from these positions (:func:`packed_engine.sort_frame`;
-    the row-major backend sorts every step)."""
+    must be sorted from these positions (:func:`packed_engine.sort_frame`,
+    plane-padded in 3-D; the row-major backend sorts every step)."""
     if frame.pos.is_cuda:
         return _launch_rows("phase2_rows", 3, frame, pp, pa, gc, mu,
                             win_start, win_len, grid, ks, cfg, tables, volume,
@@ -947,10 +948,9 @@ def virial_rows_sweep(frame: SortedFrame, pp, pa, gc, mu, win_start, win_len,
     (``csrc/virial_sweep.cu``, ``fsi_virial_rows``, replacing the TPU
     ``pallas_pairwise._virial_kernel``) or the call raises; only a CPU frame
     takes :func:`virial_rows_sweep_plain`.  The kernel finds each
-    receiver's ring run from the linear cells of the positions
-    (:func:`ring_runs_rows`), so the frame must be sorted from these
-    positions (:func:`packed_engine.sort_frame`; the diagnostics always
-    build such a frame)."""
+    receiver's ring run from the key (:func:`ring_runs_rows`), so the frame
+    must be sorted from these positions (:func:`packed_engine.sort_frame`,
+    plane-padded in 3-D; the diagnostics always build such a frame)."""
     if frame.pos.is_cuda:
         return _launch_rows("virial_rows", 9, frame, pp, pa, gc, mu,
                             win_start, win_len, grid, ks, cfg, tables, volume,

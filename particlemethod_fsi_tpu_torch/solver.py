@@ -4,22 +4,24 @@ Counterpart of ``particlemethod_fsi_tpu/solver.py``, for the two window-sweep
 backends on one device: ``pallas_t`` (field-major kernels, ``ops/windows_t``;
 what ``auto`` selects) and ``pallas`` (row-major kernels, ``ops/windows``),
 which also takes every ``auto``/``pallas_t`` frame of 2^24 cells or more, as
-in the JAX package.  Ported: ``adjust_domain``,
-``Simulation.__init__`` (without 3-D plane padding), ``_rebuild_ghosts``,
-``refresh_ghosts``, ``_is_planar``, ``_initial_structure_neighbors``,
-``_frame_inputs``, ``_propagate_ghost_fields``, ``_force``,
+in the JAX package.  Ported: ``adjust_domain``, ``Simulation.__init__``,
+``_rebuild_ghosts`` (with the 3-D plane padding), ``refresh_ghosts``,
+``_is_planar``, ``_initial_structure_neighbors``,
+``apply_initial_velocity_profile``, ``_frame_inputs``, ``_pallas_frame``
+(here ``_frame``), ``_propagate_ghost_fields``, ``_force``,
 ``_margin_cached``, ``_init_cache``, ``_force_cached``, ``_step_core``,
 ``step``, ``run_chunk``, ``_chunk_guarded`` / ``run_chunk_guarded``,
 ``_diagnostics`` / ``diagnostics`` (the window-sweep branch) and the module
 function ``load_case``.  Sequence of one step (matching
 src/main.cpp:592-663):
 
-  inlet profile -> periodic wrap -> ghost rows (periodic scenes) -> frame
-  rebuild or reuse (C8 predicate; ``pallas_t`` only, the row-major backend
-  rebuilds every step) -> phase 1 (densities, divergence) + EOS -> ghost
-  fields from their sources -> phase 2 (pairwise forces) -> gravity ->
-  velocity kick (fluid + structure) -> fluid convection -> elastic
-  substeps.
+  inlet profile -> prescribed wall motion (skipped for static walls) ->
+  periodic wrap -> ghost rows (periodic scenes) -> frame rebuild or reuse
+  (C8 predicate; ``pallas_t`` only, the row-major backend rebuilds every
+  step; in 3-D the frame is plane-padded) -> phase 1 (densities,
+  divergence) + EOS -> ghost fields from their sources -> phase 2
+  (pairwise forces) -> gravity -> velocity kick (fluid + structure) ->
+  fluid convection -> elastic substeps.
 
 Where the JAX package refreshes its ghost plan only at a chunk boundary
 (``refresh_ghosts``), the port also tests the state every step starts from
@@ -27,8 +29,7 @@ and rebuilds the plan before that step's forces where pairs span an axis
 the plan does not cover, so no step drops such pairs.
 
 Not ported yet, and raised for by name rather than run some other way:
-prescribed wall motion and ``Rolling``, the Bar initial velocity profile,
-3-D plane padding, and the ``packed`` / ``gather`` backends.
+the ``packed`` / ``gather`` backends.
 
 PyTorch runs eagerly, so where the JAX package traces ``lax.cond`` and
 ``lax.scan`` this module has a Python ``if`` on a few device scalars a step
@@ -146,13 +147,6 @@ class Simulation:
                 f"backend {cfg.numerics.backend!r}: only the window sweeps "
                 "('pallas_t', 'pallas', or 'auto') are ported; the packed "
                 "and gather engines come with a later slice")
-        if cfg.scene.rolling is not None:
-            raise NotImplementedError(
-                "Rolling wall motion is not ported yet (scene-modules slice)")
-        if cfg.scene.velocity_profile == "bar_first_mode":
-            raise NotImplementedError(
-                "velocity profile 'bar_first_mode' is not ported yet "
-                "(scene-modules slice)")
 
         self.kernels: KernelSet = build_kernels(
             spacing=self.spacing,
@@ -187,17 +181,15 @@ class Simulation:
             cfg, self.kernels, self.dtype, self.device)
         (self.wall_center0, self.wall_velocity, self.wall_omega,
          self.wall_rotation) = wl.wall_tables(cfg, self.dtype, self.device)
-        # static walls (Wall rows all zero, wall particles at rest): the
-        # prescribed-motion pass is the identity and the step skips it
+        # static walls (no Rolling, Wall rows all zero, wall particles at
+        # rest): the prescribed-motion pass is the identity and the step
+        # skips it
         wall0 = (grid.prop >= 4) & (grid.prop < 6)
         self._walls_static = bool(
-            not any(any(w.velocity) or any(w.omega) for w in cfg.walls)
+            cfg.scene.rolling is None
+            and not any(any(w.velocity) or any(w.omega) for w in cfg.walls)
             and not np.any(grid.velocity[wall0])
         )
-        if not self._walls_static:
-            raise NotImplementedError(
-                "prescribed wall motion is not ported yet (scene-modules "
-                "slice)")
 
         n_pad = n_pad if n_pad is not None else cfg.numerics.n_pad
         self.state0: ParticleState = state_lib.make_state(
@@ -232,10 +224,6 @@ class Simulation:
         self._ghosts: Optional[gh.GhostSpec] = None
         self._rebuild_ghosts(grid.position, grid.prop >= 0)
         self.ghost_refreshes = 0  # plan rebuilds after set-up
-        if not cfg.two_dimensional and self._frame_grid.cell_count[2] > 1:
-            raise NotImplementedError(
-                "3-D frames need plane padding, which is not ported yet "
-                "(3-D slice)")
         if (self._backend == "pallas_t"
                 and self._frame_grid.num_cells >= (1 << 24)):
             self._backend = "pallas"
@@ -310,6 +298,10 @@ class Simulation:
                 self._ghosts.total_capacity)
         self._frame_grid = (self._ghosts.grid if self._ghosts is not None
                             else self.cell_grid)
+        # 3-D: plane-align the sorted frame so that no receiver block spans
+        # a z-plane end (packed_engine.pad_frame_planes)
+        self._pad_planes = (not self.cfg.two_dimensional
+                            and self._frame_grid.cell_count[2] > 1)
 
     def refresh_ghosts(self, state: ParticleState, *,
                        force: bool = False) -> bool:
@@ -459,6 +451,14 @@ class Simulation:
             self._ghosts, self.cell_grid, pos, vel, prop)
         return (pos_e, vel_e, prop_e), src, overflow
 
+    def _frame(self, pos, vel, prop) -> pk.SortedFrame:
+        """The sorted frame of the frame's source rows, plane-padded in 3-D
+        (``_pallas_frame`` of the JAX package)."""
+        frame = pk.sort_frame(pos, vel, prop, self._frame_grid)
+        if self._pad_planes:
+            frame = pk.pad_frame_planes(frame, self._frame_grid)
+        return frame
+
     def _propagate_ghost_fields(self, inv, f1: dict, src) -> dict:
         """Overwrite the ghost rows' phase-1 sender fields with their SOURCE
         particles' values (a ghost's own sums are incomplete: its
@@ -487,8 +487,8 @@ class Simulation:
         """Phase 1 + EOS, the ghost rows' fields from their sources (a
         ghost-extended frame: ``gsrc``, with the frame's inverse
         permutation ``inv`` where the caller has it), phase 2, gravity, and
-        the return to slot order (ghost rows dropped), for a frame that is
-        already sorted."""
+        the return to slot order (ghost rows and plane pads dropped), for a
+        frame that is already sorted."""
         fgrid = self._frame_grid
         phase1, phase2, _ = self._sweeps
         f1 = phase1(frame, fgrid, self.kernels, self.tables, cfg=self._pcfg,
@@ -523,7 +523,7 @@ class Simulation:
         finputs, gsrc, overflow = self._frame_inputs(pos, vel, prop)
         if gsrc is not None:
             self._mark("ghost rows")
-        frame = pk.sort_frame(*finputs, self._frame_grid)
+        frame = self._frame(*finputs)
         windows = pw.compute_windows(frame, self._frame_grid, self._pcfg)
         self._mark("frame")
         return self._pair_forces(frame, windows, gsrc), overflow
@@ -544,11 +544,14 @@ class Simulation:
         """Empty frame cache whose infinite ``ref_pos`` forces a rebuild on
         first use (``pos - inf`` is not finite, so the cache is stale).
         ``spec`` is the ghost plan the frame was built under, ``gsrc`` and
-        ``inv`` its ghost sources and inverse permutation."""
+        ``inv`` its ghost sources and inverse permutation; ``gather`` (3-D)
+        the frame's source row of each frame row, 0 on a plane pad, and
+        ``pads`` the plane pads' mask."""
         return dict(
             orig=None, key=None, prop_s=None, ws=None, wl=None,
             ref_pos=torch.full_like(state.pos, float("inf")),
-            spec=None, gsrc=None, inv=None, rebuilds=0,
+            spec=None, gsrc=None, inv=None, gather=None, pads=None,
+            rebuilds=0,
         )
 
     def _force_cached(self, pos, vel, prop, cache: dict, extremes,
@@ -617,13 +620,20 @@ class Simulation:
             finputs, gsrc, gover = self._frame_inputs(pos, vel, prop)
             if gsrc is not None:
                 self._mark("ghost rows")
-            frame = pk.sort_frame(*finputs, self._frame_grid)
+            frame = self._frame(*finputs)
             ws, wl_ = pw.compute_windows(frame, self._frame_grid, self._pcfg)
             inv = (_inverse_permutation(frame.orig) if gsrc is not None
                    else None)
+            gather = pads = None
+            if self._pad_planes:
+                # plane pads have orig past every source row: gather row 0
+                # for them and poison them again on every skip
+                pads = frame.orig >= finputs[0].shape[0]
+                gather = frame.orig.masked_fill(pads, 0)
             new_cache = dict(orig=frame.orig, key=frame.key,
                              prop_s=frame.prop, ws=ws, wl=wl_, ref_pos=pos,
                              spec=self._ghosts, gsrc=gsrc, inv=inv,
+                             gather=gather, pads=pads,
                              rebuilds=cache["rebuilds"] + 1)
         else:
             orig, gsrc = cache["orig"], cache["gsrc"]
@@ -635,9 +645,17 @@ class Simulation:
                                    pos_eff[gsrc] + self._ghost_shift_rows])
                 vel_x = torch.cat([vel, vel[gsrc]])
                 self._mark("ghost rows")
-            frame = pk.SortedFrame(key=cache["key"], pos=pos_x[orig],
-                                   vel=vel_x[orig], prop=cache["prop_s"],
-                                   orig=orig)
+            if cache["pads"] is None:
+                pos_s, vel_s = pos_x[orig], vel_x[orig]
+            else:
+                # a plane pad's cached key is a real cell: un-poisoned, it
+                # would pass the ring test as a phantom sender
+                # (pad_frame_planes' convention: position 1e9, velocity 0)
+                pads = cache["pads"][:, None]
+                pos_s = pos_x[cache["gather"]].masked_fill(pads, 1.0e9)
+                vel_s = vel_x[cache["gather"]].masked_fill(pads, 0.0)
+            frame = pk.SortedFrame(key=cache["key"], pos=pos_s, vel=vel_s,
+                                   prop=cache["prop_s"], orig=orig)
             ws, wl_ = cache["ws"], cache["wl"]
             gover = torch.zeros((), dtype=torch.int32, device=self.device)
             new_cache = cache
@@ -665,7 +683,14 @@ class Simulation:
 
         if cfg.scene.velocity_profile == "turek_inlet":
             vel = wl.turek_inlet_velocity(pos, vel, prop, time, cfg.scene)
-        # walls are static here (checked at setup): no prescribed motion
+        if self._walls_static:
+            wall_center = state.wall_center
+        else:
+            pos, vel, wall_center = wl.apply_wall_motion(
+                pos, vel, prop, state.wall_center, time,
+                wall_velocity=self.wall_velocity, wall_omega=self.wall_omega,
+                wall_rotation=self.wall_rotation, dt=dt, scene=cfg.scene,
+                freeze=cfg.compat.freeze_wall_motion)
         pos = wl.periodic_wrap(pos, self._dmin_t, self._width_t)
         extremes = gh.valid_extremes(pos, prop < 0)
 
@@ -705,18 +730,22 @@ class Simulation:
             self._mark("solid")
 
         return state.replace(
-            pos=pos, vel=vel, time=time + dt,
+            pos=pos, vel=vel, wall_center=wall_center, time=time + dt,
             # max-accumulated over the chunk: an overflow of one step
             # survives to the chunk boundary
             ghost_overflow=torch.maximum(state.ghost_overflow, ghost_over),
         ), cache
 
     def apply_initial_velocity_profile(self, state: ParticleState):
-        """The scene's initial velocity profile (``bar_first_mode`` of the
-        JAX package); it comes with the scene-modules slice."""
-        raise NotImplementedError(
-            "apply_initial_velocity_profile (the 'bar_first_mode' profile) "
-            "is not ported yet (scene-modules slice)")
+        """Opt-in Bar-module excitation (the reference's init-time call is
+        commented out, src/main.cpp:571): the ``bar_first_mode`` profile on
+        the structure rows; any other scene returns ``state`` itself."""
+        if self.cfg.scene.velocity_profile != "bar_first_mode":
+            return state
+        with torch.no_grad():
+            return state.replace(vel=wl.bar_initial_velocity(
+                state.pos0, state.vel, state.prop, self.cfg.scene,
+                self.tables.density))
 
     # ------------------------------------------------------------------
     def step(self, state: ParticleState) -> ParticleState:
@@ -788,10 +817,10 @@ class Simulation:
         """Output-time field recomputation (VTK fields + virial stress,
         src/main.cpp:984-1189, 3077-3318) on the device: a fresh frame and
         fresh windows (never the C8 cache, so every field is in one frame's
-        order; ghost-extended on a periodic scene), phase 1 with the
-        neighbour count, the ghost rows' fields from their sources, phase 2,
-        the virial sweep, then one gather back to slot order that drops the
-        ghost rows.
+        order; ghost-extended on a periodic scene, plane-padded in 3-D),
+        phase 1 with the neighbour count, the ghost rows' fields from their
+        sources, phase 2, the virial sweep, then one gather back to slot
+        order that drops the ghost rows and plane pads.
 
         Tensor outputs come in memory-friendly layouts -- solid tensors in
         compact subset space [S, sd, sd], virial components [9, N] -- and
@@ -802,7 +831,7 @@ class Simulation:
         phase1, phase2, virial = self._sweeps
         self._mark("begin")
         finputs, gsrc, ghost_over = self._frame_inputs(pos, vel, prop)
-        frame = pk.sort_frame(*finputs, fgrid)
+        frame = self._frame(*finputs)
         windows = pw.compute_windows(frame, fgrid, pcfg)
         inv = _inverse_permutation(frame.orig)
         self._mark("frame")

@@ -3,13 +3,14 @@ tree, on the card, in one process: bit for bit and in turns.
 
 No counterpart in the JAX package.  Both libraries are built by
 ``ops/cuda_loader``: this tree's from its ``csrc/``, the other from the
-``csrc/`` given by ``--other``.  The inputs are the 1M-particle bench
-scene's (``build_case(1000)``) after a few steps, float32, one fresh frame
-with its window table on each backend, and the fields of phase 1 on that
-frame: the key rule's inputs for kernels 1-3 (``fsi_phase1_sweep``, also
-with the count, ``fsi_phase2_sweep``, ``fsi_virial_sweep``), the row rule's
-for kernels 4-6 (``fsi_phase1_rows``, ``fsi_phase2_rows``,
-``fsi_virial_rows``).  Each kernel of each library runs on the same inputs;
+``csrc/`` given by ``--other``.  The inputs are those of the two 1M scenes, the bench
+scene (``build_case(1000)``) and the Turek channel (``build_turek(1e-3)``,
+a ghost-extended frame), after a few steps, float32, one fresh frame as
+the step builds it with its window table on each backend, and the fields
+of phase 1 on that frame: the key rule's inputs for kernels 1-3
+(``fsi_phase1_sweep``, also with the count, ``fsi_phase2_sweep``,
+``fsi_virial_sweep``), the row rule's for kernels 4-6 (``fsi_phase1_rows``,
+``fsi_phase2_rows``, ``fsi_virial_rows``).  Each kernel of each library runs on the same inputs;
 the outputs are compared bit for bit and the times are taken in turns,
 other, this, this, other, twice over: warm (mean of ``REPS`` back-to-back
 launches by CUDA events) and cold (mean of ``COLD_REPS`` launches, each
@@ -39,7 +40,9 @@ from particlemethod_fsi_tpu_torch.ops import cuda_loader
 from particlemethod_fsi_tpu_torch.ops import windows as pw
 from particlemethod_fsi_tpu_torch.ops import windows_t as pwt
 
+SCENES = ("bench", "turek")
 N_SIDE = 1000  # the bench scene, 1,012,666 particles
+TUREK_L0 = 1e-3  # the Turek channel, 1,040,000 particles
 STEPS = 20     # steps run before the frame is taken
 REPS = 50      # back-to-back launches a warm timing
 COLD_REPS = 10  # launches a cold timing
@@ -75,47 +78,60 @@ def _time_ms_cold(fn, reps: int) -> float:
 
 
 def _calls():
-    """name -> function of the kernels' launches on the scene's inputs."""
-    from particlemethod_fsi_tpu_torch.models import build_case
-    from particlemethod_fsi_tpu_torch.ops import packed_engine as pk
+    """name -> function of the kernels' launches on the scenes' inputs
+    (``<scene>/<kernel>``)."""
+    calls = {}
+    for scene in SCENES:
+        for backend in ("pallas_t", "pallas"):
+            calls.update({f"{scene}/{k}": v
+                          for k, v in _scene_calls(scene, backend).items()})
+    return calls
+
+
+def _scene_calls(scene: str, backend: str):
+    """name -> function of the kernels' launches on one scene's frame on
+    one backend."""
+    from particlemethod_fsi_tpu_torch.models import build_case, build_turek
+    from particlemethod_fsi_tpu_torch.ops.walls import periodic_wrap
 
     calls = {}
-    for backend in ("pallas_t", "pallas"):
-        sim = build_case(N_SIDE, backend=backend)
-        state = sim.run_chunk(sim.state0, STEPS)
-        grid, ks, cfg, tables = (sim._frame_grid, sim.kernels, sim._pcfg,
-                                 sim.tables)
-        frame = pk.sort_frame(state.pos, state.vel, state.prop, grid)
-        win = pw.compute_windows(frame, grid, cfg)
-        kw = dict(volume=sim.volume, two_dimensional=sim.cfg.two_dimensional)
-        if backend == "pallas_t":
-            offs, _ = pw.row_offsets(grid)
-            f1 = pwt.phase1_fields_t(frame, grid, ks, tables, cfg=cfg,
-                                     windows=win)
-            a = (frame, f1["pressure_p"], f1["pressure_a"],
-                 f1["gravity_center"], pwt.inverse_viscosity(f1["mu"]), *win,
-                 offs, ks, cfg, tables)
-            p1 = (frame, *win, offs, ks, cfg, tables)
-            calls["phase1_sweep"] = lambda p1=p1, s=grid.support: (
-                pwt.phase1_sweep(*p1, support=s))
-            calls["phase1_sweep_count"] = lambda p1=p1, s=grid.support: (
-                pwt.phase1_sweep(*p1, support=s, count=True))
-            calls["phase2_sweep"] = lambda a=a, kw=kw: pwt.phase2_sweep(
-                *a, **kw)
-            calls["virial_sweep"] = lambda a=a, kw=kw: pwt.virial_sweep(
-                *a, **kw)
-        else:
-            f1 = pw.phase1_fields(frame, grid, ks, tables, cfg=cfg,
-                                  windows=win)
-            a = (frame, f1["pressure_p"], f1["pressure_a"],
-                 f1["gravity_center"].contiguous(), f1["mu"], *win, grid, ks,
-                 cfg, tables)
-            calls["phase1_rows"] = lambda p1=(frame, *win, grid, ks, cfg,
-                                              tables): pw.phase1_rows_sweep(*p1)
-            calls["phase2_rows"] = lambda a=a, kw=kw: pw.phase2_rows_sweep(
-                *a, **kw)
-            calls["virial_rows"] = lambda a=a, kw=kw: pw.virial_rows_sweep(
-                *a, **kw)
+    sim = (build_case(N_SIDE, backend=backend) if scene == "bench"
+           else build_turek(TUREK_L0, backend=backend))
+    state = sim.run_chunk(sim.state0, STEPS)
+    grid, ks, cfg, tables = (sim._frame_grid, sim.kernels, sim._pcfg,
+                             sim.tables)
+    pos = periodic_wrap(state.pos, sim._dmin_t, sim._width_t)
+    frame = sim._frame(*sim._frame_inputs(pos, state.vel, state.prop)[0])
+    win = pw.compute_windows(frame, grid, cfg)
+    kw = dict(volume=sim.volume, two_dimensional=sim.cfg.two_dimensional)
+    if backend == "pallas_t":
+        offs, _ = pw.row_offsets(grid)
+        f1 = pwt.phase1_fields_t(frame, grid, ks, tables, cfg=cfg,
+                                 windows=win)
+        a = (frame, f1["pressure_p"], f1["pressure_a"],
+             f1["gravity_center"], pwt.inverse_viscosity(f1["mu"]), *win,
+             offs, ks, cfg, tables)
+        p1 = (frame, *win, offs, ks, cfg, tables)
+        calls["phase1_sweep"] = lambda p1=p1, s=grid.support: (
+            pwt.phase1_sweep(*p1, support=s))
+        calls["phase1_sweep_count"] = lambda p1=p1, s=grid.support: (
+            pwt.phase1_sweep(*p1, support=s, count=True))
+        calls["phase2_sweep"] = lambda a=a, kw=kw: pwt.phase2_sweep(
+            *a, **kw)
+        calls["virial_sweep"] = lambda a=a, kw=kw: pwt.virial_sweep(
+            *a, **kw)
+    else:
+        f1 = pw.phase1_fields(frame, grid, ks, tables, cfg=cfg,
+                              windows=win)
+        a = (frame, f1["pressure_p"], f1["pressure_a"],
+             f1["gravity_center"].contiguous(), f1["mu"], *win, grid, ks,
+             cfg, tables)
+        calls["phase1_rows"] = lambda p1=(frame, *win, grid, ks, cfg,
+                                          tables): pw.phase1_rows_sweep(*p1)
+        calls["phase2_rows"] = lambda a=a, kw=kw: pw.phase2_rows_sweep(
+            *a, **kw)
+        calls["virial_rows"] = lambda a=a, kw=kw: pw.virial_rows_sweep(
+            *a, **kw)
     return calls
 
 

@@ -228,7 +228,51 @@ def test_without_a_device_flag_and_without_a_gpu_nothing_is_written(gate):
     # other way
     with pytest.raises(SystemExit):
         pcli.main(argv + ["--device", "cpu", "--mesh", "4"])
-    with pytest.raises(NotImplementedError, match="bar_first_mode"):
-        pcli.main(argv + ["--device", "cpu", "--apply-velocity-profile"])
     with pytest.raises(NotImplementedError, match="backend"):
         pcli.main(argv + ["--device", "cpu", "--backend", "packed"])
+    with pytest.raises(NotImplementedError, match="gather"):
+        pcli.main(argv + ["--device", "cpu", "--backend", "gather"])
+
+
+def test_bar_profile_matches_the_jax_command(tmp_path):
+    """``--apply-velocity-profile`` with ``--bar-amplitude`` on the bar case
+    (``cases/bar``: a cantilever excited in its first bending mode, five
+    elastic substeps a step), ten steps with one output after five, as the
+    JAX command runs it (``packed`` there): the snapshots to the print
+    format, the tip moving up."""
+    text = open(os.path.join(REPO, "cases", "bar", "bar.data")).read()
+    text = re.sub(r"(?m)^OutputInterval\s+\S+", "OutputInterval\t0.0005", text)
+    text = re.sub(r"(?m)^VtkOutputInterval\s+\S+", "VtkOutputInterval\t1",
+                  text)
+    (tmp_path / "bar.data").write_text(text)
+    shutil.copy(os.path.join(REPO, "cases", "bar", "bar.boid"), tmp_path)
+    generate_case(str(tmp_path / "bar"))
+
+    def argv(out, *flags):
+        os.makedirs(out, exist_ok=True)
+        return [str(tmp_path / "bar.data"), str(tmp_path / "bar.grid"),
+                str(out / "bar%03d.prof"), str(out / "bar%03d.vtk"),
+                str(out / "bar.log"), "4", "--scene", "bar",
+                "--apply-velocity-profile", "--bar-amplitude", "0.005",
+                "--dtype", "float64", "--end-time", "0.001", *flags]
+
+    assert jcli.main(argv(tmp_path / "j")) == 0
+    assert pcli.main(argv(tmp_path / "p", "--device", "cpu")) == 0
+    names = sorted(n for n in os.listdir(tmp_path / "j") if n.endswith(".prof"))
+    assert names == ["bar000.prof", "bar005.prof", "bar010.prof"]
+    assert sorted(n for n in os.listdir(tmp_path / "p")
+                  if n.endswith(".prof")) == names
+    for name in names:
+        got = read_grid_file(tmp_path / "p" / name)
+        want = read_grid_file(tmp_path / "j" / name)
+        assert got.time == want.time and got.n == want.n == 800
+        for k in ("position", "velocity"):
+            _columns_close(f"{name} {k}", getattr(got, k), getattr(want, k))
+    start = read_grid_file(tmp_path / "p" / "bar000.prof")
+    end = read_grid_file(tmp_path / "p" / "bar010.prof")
+    tip = int(np.argmax(start.initial_position[:, 0]))
+    # the profile's tip speed: amplitude x c0 (c0 = sqrt(K / rho), K the
+    # Bar module's 3.25e6) x f(x_tip) / f(L), which is just under 1
+    assert start.velocity[tip, 1] == pytest.approx(
+        0.005 * np.sqrt(3.25e6 / 1100), rel=0.01)
+    assert end.position[tip, 1] > start.position[tip, 1]

@@ -66,6 +66,17 @@ def test_port_runs_with_jax_unimportable():
         assert tk._ghosts is not None and ghosts.spec_axes(tk._ghosts)[0]
         out = tk.run_chunk(tk.state0, 1)
         assert bool(torch.isfinite(out.pos).all()) and tk.rebuilds == 1
+        # a 3-D frame (plane-padded) and rocking walls
+        from particlemethod_fsi_tpu_torch.config import NumericsConfig
+        from particlemethod_fsi_tpu_torch.models import dam_break_3d, rolling_tank
+        from particlemethod_fsi_tpu_torch.solver import Simulation
+        nm = NumericsConfig(dtype="float64", pallas_block=32)
+        s3 = Simulation(*dam_break_3d(n_side=4, numerics=nm), device="cpu")
+        out = s3.run_chunk(s3.state0, 1)
+        assert s3._pad_planes and bool(torch.isfinite(out.pos).all())
+        rt = Simulation(*rolling_tank(n_side=8, numerics=nm), device="cpu")
+        out = rt.run_chunk(rt.state0, 1)
+        assert not rt._walls_static and bool(torch.isfinite(out.pos).all())
         x, y = bf16_microbench.inputs(device="cpu")
         acc = bf16_microbench.run(x[:4], y[:4], torch.bfloat16, 2)
         assert acc.shape == (4, 1) and bool(torch.isfinite(acc).all())
@@ -98,7 +109,8 @@ def test_command_line_runs_with_jax_unimportable(tmp_path):
                      "io.grid_file", "utils.logging", "utils.watchdog",
                      "utils.checkpoint", "generator", "convert",
                      "ops.windows", "ops.windows_t", "ops.ghosts",
-                     "models.turek", "tools.bf16_microbench"):
+                     "models.turek", "models.cases",
+                     "tools.bf16_microbench"):
             assert port.__name__ + "." + want in names, want
         from particlemethod_fsi_tpu_torch import cli
         from particlemethod_fsi_tpu_torch.io import write_data_file, write_grid_file

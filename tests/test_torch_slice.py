@@ -96,24 +96,52 @@ def test_step_rebuilds_every_time_and_keeps_its_input():
 @pytest.mark.parametrize("what", ["rolling", "bar_first_mode", "moving_wall",
                                   "3d", "backend"])
 def test_unported_paths_raise_by_name(what):
-    """What later slices port raises NotImplementedError at setup: never a
-    silent other path."""
-    from cases import config_3d, mini_dam, mini_dam_3d
+    """What is not ported raises NotImplementedError at set-up, never a
+    silent other path: the ``packed`` and ``gather`` engines.  The paths
+    that earlier slices refused and this one ports run, against JAX
+    ``pallas_t``, three steps at the slice's bars: Rolling (rocking walls),
+    the bar's first-mode profile, prescribed wall motion (translation and
+    an in-plane rotation: the frame stays planar) and a 3-D frame with
+    several z-planes of cells (plane-padded)."""
+    from cases import config_3d, mini_bar, mini_dam, mini_dam_3d
     from particlemethod_fsi_tpu.config import WallMotion
 
     grid = mini_dam()
     cfg = dam_like_config(**WINDOW_KW)
+    if what == "backend":
+        for backend in ("packed", "gather"):
+            with pytest.raises(NotImplementedError, match=backend):
+                Simulation(port_cfg(dam_like_config(backend=backend)),
+                           port_grid(grid), device="cpu")
+        return
     if what == "rolling":
         cfg = cfg.replace(scene=SCENES["rolling"])
     elif what == "bar_first_mode":
-        cfg = cfg.replace(scene=SCENES["bar"])
+        grid = mini_bar()
+        cfg = cfg.replace(scene=SCENES["bar"], gravity=(0.0, 0.0, 0.0),
+                          young_modulus=(0.0, 0.0, 1e4, 1e5, 1e8, 1e4))
     elif what == "moving_wall":
         walls = list(cfg.walls)
-        walls[4] = WallMotion(velocity=(0.1, 0.0, 0.0))
+        walls[4] = WallMotion(center=(0.012, 0.0, 0.0),
+                              velocity=(0.1, 0.0, 0.0), omega=(0.0, 0.0, 2.0))
         cfg = cfg.replace(walls=tuple(walls))
     elif what == "3d":
         grid, cfg = mini_dam_3d(), config_3d(**WINDOW_KW)
-    elif what == "backend":
-        cfg = dam_like_config(backend="packed")
-    with pytest.raises(NotImplementedError):
-        Simulation(port_cfg(cfg), port_grid(grid), device="cpu")
+    jsim = JaxSimulation(cfg, grid)
+    psim = Simulation(port_cfg(cfg), port_grid(grid), device="cpu")
+    assert psim._pcfg.planar == jsim._pcfg.planar == (what != "3d")
+    assert psim._walls_static == jsim._walls_static == (
+        what not in ("rolling", "moving_wall"))
+    assert psim._pad_planes == jsim._pad_planes == (what == "3d")
+    js = jsim.apply_initial_velocity_profile(jsim.state0)
+    ps = psim.apply_initial_velocity_profile(psim.state0)
+    want = jax_to_numpy(jsim.run_chunk(js, 3), jsim.n)
+    got = to_numpy(psim.run_chunk(ps, 3), psim.n)
+    np.testing.assert_allclose(got["pos"], want["pos"], rtol=1e-12, atol=1e-15)
+    np.testing.assert_allclose(got["vel"], want["vel"], rtol=1e-9, atol=1e-13)
+    np.testing.assert_array_equal(got["wall_center"], want["wall_center"])
+    moved = np.abs(got["pos"] - grid.position).max(axis=1)
+    if what in ("rolling", "moving_wall"):
+        assert moved[(grid.prop >= 4) & (grid.prop < 6)].max() > 0
+    if what == "bar_first_mode":
+        assert np.abs(to_numpy(ps)["vel"][:, 1]).max() > 0
