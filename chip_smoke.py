@@ -10,8 +10,10 @@ them; it never runs on the CPU.  The port has two window-sweep backends,
 each with three hand-written kernels: ``pallas_t`` (field-major; kernels 1-3:
 phase 1, phase 2, virial) and ``pallas`` (row-major; kernels 4-6, the same
 three sums with the ring recomputed from positions); kernel 7 is the
-packed-bf16 throughput probe.  Phases, each failing the run on its first
-fault:
+packed-bf16 throughput probe.  The candidate engines ``packed`` and
+``gather`` are plain torch ops (no hand kernel): their phases hold them
+against the CPU and ``pallas_t`` and time them.  Phases, each failing the
+run on its first fault:
 
 1. the card: name and power limit as ``nvidia-smi`` gives them;
 2. build: the CUDA kernels under ``particlemethod_fsi_tpu_torch/csrc/`` are
@@ -44,12 +46,16 @@ fault:
    same frame: the same pre-test); printed beside the window senders;
 4. a small coupled scene in float64 on both backends, card (kernels)
    against CPU (plain versions), ten steps, and a small 3-D dam break the
-   same way (plane-padded frames); the Turek channel at 5 mm
-   (44,000 particles, ghost-extended) the same way, and again in chunks of
+   same way (plane-padded frames); the small scene on ``packed`` and
+   ``gather`` and the 3-D dam and the 44k channel on ``packed`` the same
+   way (no plane padding, no ghost rows: the minimum image); the Turek
+   channel at 5 mm (44,000 particles, ghost-extended) the same way, and
+   again in chunks of
    1, 1, 3 and 5 steps with the ghost plan rebuilt by force before the
    last, printing the flag's velocity gap after each; and the gate case
    (6,724 particles, float64, 100 steps through ``load_case``) on both
-   backends against the reference binary's golden, the Rolling module
+   backends and on ``packed`` (cell capacity 12, as the JAX package's
+   goldens run) against the reference binary's golden, the Rolling module
    (rocking walls; 500 steps on ``pallas_t``, 100 on ``pallas``) and the
    bar's tip after its first-mode excitation (100 steps) the same way;
 5. the step path of each backend on four full-size scenes, the coupled
@@ -67,12 +73,24 @@ fault:
    rebuilt by force, timed, and a chunk after it; then (field-major, the
    bench scene) guarded against unguarded chunks, and on every scene the
    split of one ``diagnostics`` call;
+   then the candidate engines at full size (``packed`` on the bench, the
+   channel and the 3-D dam, ``gather`` on the bench and the channel; cell
+   capacity 16 on the bench, 24 on the channel, 80 on the 3-D dam, so that
+   no cell is past it: the run
+   fails where a step met one, or where a window kernel launched),
+   float32, a warm-up chunk and three timed chunks of 20 steps (the 3-D
+   dam's 5): ms/step,
+   particle-steps/s, the peak of device memory, the fullest cell; one
+   ``diagnostics`` call on ``packed``, and on the bench's state one step's
+   force on each engine against ``pallas_t``'s (float64: within 1e-9 of
+   the largest force; float32: the gap printed);
    then frames of 2^24 cells or more, which ``pallas_t`` hands to the
    row-major kernels;
 6. the command-line path of each backend: the same scene written as
    ``.data`` and ``.grid`` into a temporary directory, ``cli.main`` in
    process on the card for one output interval with the watchdog on, and
-   the Turek channel and ``cases/gate3d`` the same way on ``pallas_t``;
+   the Turek channel and ``cases/gate3d`` the same way on ``pallas_t``,
+   and the bench scene on ``packed`` and ``gather`` (10 steps each);
    ``.prof`` and ``.vtk`` files with virial pressure, log and metrics
    written, read back and checked; launch counts of the backend's kernels;
    seconds of the writers and readers;
@@ -115,11 +133,23 @@ SCENE_SIZES = {"bench": (N_PARTICLES, N_SLOTS, 1),
 SCALE = {"bench": "1M", "turek": "1M", "gate3d": "236k", "dam3d": "2.08M"}
 DAM3D_SIDE = 120  # models.dam_break_3d's n_side: 2,077,920 particles
 # steps a chunk of each scene's path (a warm-up chunk and TIMED_CHUNKS)
-PATH_CHUNK = {("dam3d", "pallas_t"): 10, ("dam3d", "pallas"): 5}
+PATH_CHUNK = {("dam3d", "pallas_t"): 10, ("dam3d", "pallas"): 5,
+              ("dam3d", "packed"): 5}
 CHUNK = 20
 TIMED_CHUNKS = 3
 CLI_STEPS = 20  # steps of the command-line phase's one output interval
-CLI_ROWS_STEPS = 10  # the same on the row-major backend
+CLI_ROWS_STEPS = 10  # the same on the row-major backend and the engines
+# the candidate engines (plain torch ops, no hand kernel) and the cell
+# capacity each full-size scene runs them at: enough for its fullest cell,
+# so that no timed step drops a pair.  The bench scene's cells hold 16 at
+# step 0 and over its 80 steps; the channel's hold 16 at step 0 and 18
+# within 80 steps, the 3-D dam's 4 x 4 x 4 lattice sites: room for the flow
+# to bunch them.  Not gate3d: its gate overlaps its floor (240 pairs of
+# particles at one position), and both packages' candidate engines give
+# such a pair the distance 1 m (edge_math.make_geometry), where the window
+# sweeps skip it: the step diverges there
+ENGINES = ("packed", "gather")
+ENGINE_CAPACITY = {"bench": 16, "turek": 24, "dam3d": 80}
 
 # published peaks of one H100 SXM (NVIDIA data sheet): device memory rate and
 # float32 rate outside the tensor cores
@@ -1067,10 +1097,12 @@ def check_small_scene(backend: str, three_d: bool = False):
     """Ten steps of a small scene in float64 on one backend: the card (CUDA
     kernels) against the CPU (plain versions).  The coupled bench scene at
     n_side=24, or with ``three_d`` the 3-D dam break at ``n_side=8``
-    (plane-padded frames; margin 0.5 as the bench, so that ``pallas_t``
-    reuses its frame).  Tolerance: the bar the repository holds its
-    backends to among themselves (pos rtol 1e-12 / atol 1e-15, vel rtol
-    1e-9 / atol 1e-13): only the order of the pair sums differs.  Returns
+    (plane-padded frames on the window sweeps; margin 0.5 as the bench, so
+    that ``pallas_t`` reuses its frame).  On ``packed`` and ``gather`` the
+    card runs the same plain torch ops as the CPU.  Tolerance: the bar the
+    repository holds its backends to among themselves (pos rtol 1e-12 /
+    atol 1e-15, vel rtol 1e-9 / atol 1e-13): only the order of the pair
+    sums differs.  Returns
     the particles, the largest position gap and the rebuilds."""
     from particlemethod_fsi_tpu_torch.config import NumericsConfig
     from particlemethod_fsi_tpu_torch.models import (
@@ -1089,7 +1121,9 @@ def check_small_scene(backend: str, three_d: bool = False):
     a = to_numpy(gpu.run_chunk(gpu.state0, 10), gpu.n)
     b = to_numpy(cpu.run_chunk(cpu.state0, 10), cpu.n)
     what = f"small {'3-D ' if three_d else ''}scene ({backend})"
-    if gpu.rebuilds != cpu.rebuilds or gpu._pad_planes != three_d:
+    # the candidate engines pad no planes
+    padded = three_d and backend not in ENGINES
+    if gpu.rebuilds != cpu.rebuilds or gpu._pad_planes != padded:
         fail(f"{what}: rebuilds card {gpu.rebuilds} cpu {cpu.rebuilds}, "
              f"plane padding {gpu._pad_planes}")
     try:
@@ -1117,7 +1151,9 @@ def check_turek_small(backend: str):
     kw = dict(dtype="float64", pallas_block=32, backend=backend)
     gpu = build_turek(5e-3, **kw)
     cpu = build_turek(5e-3, device="cpu", **kw)
-    if gpu._ghosts is None or gpu._ghosts != cpu._ghosts:
+    # the candidate engines take the minimum image: no ghost plan
+    if ((gpu._ghosts is None) != (backend in ENGINES)
+            or gpu._ghosts != cpu._ghosts):
         fail(f"turek 44k ({backend}): ghost plans differ")
     a = to_numpy(gpu.run_chunk(gpu.state0, 10), gpu.n)
     b = to_numpy(cpu.run_chunk(cpu.state0, 10), cpu.n)
@@ -1133,7 +1169,7 @@ def check_turek_small(backend: str):
                                    atol=2e-12)
     except AssertionError as e:
         fail(f"turek 44k ({backend}): card and CPU disagree: {e}")
-    return (gpu.n, gpu._ghosts.total_capacity,
+    return (gpu.n, gpu._ghosts.total_capacity if gpu._ghosts else 0,
             float(np.abs(a["pos"] - b["pos"]).max()),
             float(np.abs(a["vel"][~flag] - b["vel"][~flag]).max()),
             float(np.abs(a["vel"][flag] - b["vel"][flag]).max()), gpu.rebuilds)
@@ -1289,21 +1325,24 @@ VIRIAL_KERNEL = {"pallas_t": "virial_sweep", "pallas": "virial_rows"}
 
 def expect_counts(backend: str, steps: int, dumps: int) -> dict:
     """Launch counts of ``steps`` steps and ``dumps`` diagnostics calls on
-    one backend: every other kernel at 0."""
+    one backend: every other kernel at 0 (every kernel, on the candidate
+    engines)."""
     from particlemethod_fsi_tpu_torch.ops import windows as pw
 
     want = dict.fromkeys(pw.launch_counts, 0)
+    if backend in ENGINES:
+        return want
     for k in STEP_KERNELS[backend]:
         want[k] = steps + dumps
     want[VIRIAL_KERNEL[backend]] = dumps
     return want
 
 
-def gate3d_case(backend: str):
+def gate3d_case(backend: str, **numerics_kw):
     """``cases/gate3d`` as its ``execute.sh`` runs it: the grid of
     ``gate3d.boid`` through the port's generator (236,160 particles), the
     physics of ``gate3d.data``, scene ``dam``, C8 margin 0.5; float32 on
-    ``backend``.  Returns ``(cfg, grid)``."""
+    ``backend`` (and ``numerics_kw``).  Returns ``(cfg, grid)``."""
     import dataclasses
 
     from particlemethod_fsi_tpu_torch.config import SCENES, NumericsConfig
@@ -1317,27 +1356,32 @@ def gate3d_case(backend: str):
     cfg = dataclasses.replace(
         parse_data_file(os.path.join(here, "gate3d.data")),
         scene=SCENES["dam"], two_dimensional=False,
-        numerics=NumericsConfig(backend=backend, rebuild_margin=0.5))
+        numerics=NumericsConfig(backend=backend, rebuild_margin=0.5,
+                                **numerics_kw))
     return cfg, grid
 
 
 def build_scene(scene: str, backend: str):
     """A full-size scene on the card, float32, block 64: the bench scene at
     ``n_side=1000``, the Turek channel at ``l0=1e-3``, ``cases/gate3d`` or
-    the 3-D dam break at ``n_side=120`` (C8 margin 0.5, as the bench)."""
+    the 3-D dam break at ``n_side=120`` (C8 margin 0.5, as the bench); on a
+    candidate engine at the scene's :data:`ENGINE_CAPACITY`."""
     from particlemethod_fsi_tpu_torch.config import NumericsConfig
     from particlemethod_fsi_tpu_torch.models import (
         build_case, build_turek, dam_break_3d)
     from particlemethod_fsi_tpu_torch.solver import Simulation
 
+    kw = dict(backend=backend)
+    if backend in ENGINES:
+        kw["cell_capacity"] = ENGINE_CAPACITY[scene]
     if scene == "bench":
-        return build_case(N_SIDE, backend=backend)
+        return build_case(N_SIDE, **kw)
     if scene == "turek":
-        return build_turek(TUREK_L0, backend=backend)
+        return build_turek(TUREK_L0, **kw)
     if scene == "gate3d":
-        return Simulation(*gate3d_case(backend))
+        return Simulation(*gate3d_case(**kw))
     return Simulation(*dam_break_3d(DAM3D_SIDE, numerics=NumericsConfig(
-        backend=backend, rebuild_margin=0.5)))
+        rebuild_margin=0.5, **kw)))
 
 
 def run_path(backend: str, scene: str = "bench"):
@@ -1542,6 +1586,186 @@ def time_diagnostics(sim, state, backend: str, scene: str = "bench") -> dict:
     return counts
 
 
+def run_engine_path(backend: str, scene: str):
+    """A full-size scene on a candidate engine (``packed`` or ``gather``,
+    plain torch ops), float32, at the scene's :data:`ENGINE_CAPACITY`: a
+    warm-up chunk and three timed chunks of 20 steps (the 3-D dam's 5)
+    through ``run_chunk``, as :func:`run_path`.  Fails where any step met a cell
+    past the capacity (``Simulation.peak_occupancy``: that step dropped
+    pairs), where a window kernel was launched, or where the scene's sanity
+    bars fail.  Prints ms/step, particle-steps/s, the peak of device memory
+    and the fullest cell against the capacity."""
+    import torch
+    from particlemethod_fsi_tpu_torch.ops import packed_engine as pk
+    from particlemethod_fsi_tpu_torch.ops import windows as pw
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    sim = build_scene(scene, backend)
+    torch.cuda.synchronize()
+    setup_s = time.time() - t0
+    n_want, slots_want, substeps = SCENE_SIZES[scene]
+    cap = ENGINE_CAPACITY[scene]
+    if (sim.n != n_want or sim.n_pad != slots_want or sim._backend != backend
+            or sim.cell_capacity != cap or sim._ghosts is not None
+            or sim._pad_planes or sim._margin_cached
+            or sim.dtype != torch.float32 or sim.cfg.substeps != substeps):
+        fail(f"{scene} path ({backend}): {sim.n} particles in {sim.n_pad} "
+             f"slots on {sim._backend}, capacity {sim.cell_capacity}")
+    s0 = sim.state0
+    f0 = pk.sort_frame(s0.pos, s0.vel, s0.prop, sim.cell_grid,
+                       with_cell_start=True)
+    occ0 = f0.cell_start[1:] - f0.cell_start[:-1]
+    occupancy0 = int(occ0.max())
+    full0 = int((occ0 == occupancy0).sum())
+    del f0, occ0
+
+    chunk = PATH_CHUNK.get((scene, backend), CHUNK)
+    pw.reset_launch_counts()
+    state = sim.run_chunk(sim.state0, chunk)  # warm-up
+    torch.cuda.synchronize()
+    chunk_ms = []
+    for c in range(TIMED_CHUNKS):
+        if c == TIMED_CHUNKS - 1:
+            sim.profile_events = []
+        torch.cuda.synchronize()
+        t0 = time.time()
+        state = sim.run_chunk(state, chunk)
+        torch.cuda.synchronize()
+        chunk_ms.append((time.time() - t0) * 1e3 / chunk)
+    events, sim.profile_events = sim.profile_events, None
+    counts = dict(pw.launch_counts)
+    steps = chunk * (TIMED_CHUNKS + 1)
+    peak = int(sim.peak_occupancy)
+    peak_mib = torch.cuda.max_memory_allocated() / 2**20
+
+    what = f"{scene} path ({backend})"
+    if peak > cap:
+        fail(f"{what}: a cell held {peak} particles against the capacity "
+             f"{cap}: pairs were dropped on a timed path")
+    if any(counts.values()):
+        fail(f"{what}: window kernels launched: {counts}")
+    if sim.rebuilds != steps or sim.ghost_refreshes != 0:
+        fail(f"{what}: {sim.rebuilds} rebuilds in {steps} steps, "
+             f"{sim.ghost_refreshes} plan rebuilds")
+    if not bool(torch.isfinite(state.pos).all()):
+        fail(f"{what}: positions are not all finite")
+    if abs(float(state.time) - steps * sim.cfg.dt) > 1e-3 * steps * sim.cfg.dt:
+        fail(f"{what}: time {float(state.time)} after {steps} steps")
+    speed = float(state.vel[: sim.n].norm(dim=1).max())
+    if scene != "turek":
+        fell = float((sim.state0.pos[: sim.n, 1]
+                      - state.pos[: sim.n, 1]).max())
+        if not (0 < speed < 5.0 and 0 < fell < 5e-3):
+            fail(f"{what}: max speed {speed}, largest drop {fell}")
+    else:
+        fluid = (state.prop == 1) | (state.prop == 0)
+        mean_vx = float(state.vel[fluid, 0].mean())
+        if not (0 < speed < 5.0 and 0.3 < mean_vx < 1.0):
+            fail(f"{what}: max speed {speed}, mean fluid vx {mean_vx}")
+
+    spans: dict = {}
+    for (_, a), (name, b) in zip(events, events[1:]):
+        if name != "begin":
+            spans[name] = spans.get(name, 0.0) + a.elapsed_time(b)
+    label = {"read": "inlet, wrap (and the guard's read)",
+             "frame": "sort with cell offsets",
+             "neighbors": "neighbour list (sort, cell table, candidates, "
+                          "compaction to K)",
+             "candidates": "candidates tested and compacted",
+             "phases 1 and 2": "phases 1 + EOS and 2",
+             "phase1": "edge context and phase 1 + EOS",
+             "phase2": "phase 2", "integrate": "gravity, unsort, kick, "
+                                               "convection",
+             "solid": "elastic solid"}
+    breakdown = {label[k]: v / chunk for k, v in spans.items()}
+    ms = float(np.median(chunk_ms))
+    print(f"{what}: {sim.n} particles ({sim.n_pad} slots), float32, cell "
+          f"capacity {cap}, set-up {setup_s:.1f} s, {steps} steps, rebuilds "
+          f"{sim.rebuilds}, ms/step by chunk {[round(m, 3) for m in chunk_ms]},"
+          f" median {ms:.3f} ms/step, {sim.n / ms * 1e3:.4g} "
+          f"particle-steps/s, peak device memory {peak_mib:.0f} MiB; fullest "
+          f"cell {occupancy0} at step 0 ({full0} cells), {peak} over the "
+          f"{steps} steps, capacity {cap}; window kernels launched "
+          f"{sum(counts.values())}; max speed {speed:.4f} m/s")
+    print(f"{what}, ms/step by section (CUDA events, last chunk): "
+          + json.dumps({k: round(v, 4) for k, v in breakdown.items()})
+          + f"; sum {sum(breakdown.values()):.3f} of {chunk_ms[-1]:.3f}")
+    return sim, state, dict(
+        ms_per_step=ms, chunk_ms=chunk_ms, particle_steps_per_s=sim.n / ms
+        * 1e3, peak_memory_mib=peak_mib, capacity=cap,
+        occupancy_step0=occupancy0, cells_full_step0=full0,
+        occupancy_peak=peak, rebuilds=sim.rebuilds, breakdown=breakdown)
+
+
+def check_force_gap(state) -> dict:
+    """One step's force on the 1M bench state ``state`` (wrapped as a step
+    wraps it) on ``packed`` and on ``gather`` (cell capacity 16) against
+    ``pallas_t``'s, each from a fresh frame (not the C8 cache), in float32
+    and in float64, over the particles (the padding rows' forces are never
+    used, and the packed engine, as the JAX one, computes some there).
+
+    Float64 is the test: the engines' forces must lie within 1e-9 of the
+    largest force of ``pallas_t``'s, where only the order of the sums
+    differs; a dropped or doubled pair is a whole pair term off.  Float32
+    is printed, against float32 ``pallas_t`` and against the float64
+    force: the force is a small difference of large pressure terms, and the
+    candidate engines take the minimum image of every separation (one
+    rounding of the domain's width), so their float32 gap is rounding, not
+    pairs.  Fails also where a cell of the state holds more than 16."""
+    import torch
+    from particlemethod_fsi_tpu_torch.models import bench_config, bench_grid
+    from particlemethod_fsi_tpu_torch.ops import walls as wl
+    from particlemethod_fsi_tpu_torch.solver import Simulation
+
+    valid = state.prop >= 0
+    grid = bench_grid(N_SIDE)
+    forces, occupancy = {}, {}
+    for dtype in ("float64", "float32"):
+        for backend in ("pallas_t", *ENGINES):
+            kw = {"cell_capacity": ENGINE_CAPACITY["bench"]} if (
+                backend in ENGINES) else {}
+            sim = Simulation(bench_config(backend=backend, dtype=dtype, **kw),
+                             grid)
+            pos = wl.periodic_wrap(state.pos.to(sim.dtype), sim._dmin_t,
+                                   sim._width_t)
+            with torch.no_grad():
+                forces[backend, dtype] = sim._force(
+                    pos, state.vel.to(sim.dtype),
+                    state.prop)[0][valid].double()
+            occupancy[backend] = int(sim.peak_occupancy)
+            del sim
+    torch.cuda.empty_cache()
+    ref64 = forces["pallas_t", "float64"]
+    ref32 = forces["pallas_t", "float32"]
+    scale = float(ref64.abs().max())
+
+    def gap(a, b):
+        return float((a - b).abs().max()) / scale
+
+    out = {b: dict(float64=gap(forces[b, "float64"], ref64),
+                   float32=gap(forces[b, "float32"], ref32),
+                   float32_from_float64=gap(forces[b, "float32"], ref64))
+           for b in ENGINES}
+    out["pallas_t"] = dict(float32_from_float64=gap(ref32, ref64))
+    if any(occupancy[b] > ENGINE_CAPACITY["bench"] for b in ENGINES):
+        fail(f"force at 1M: cells past the capacity {occupancy}")
+    for b in ENGINES:
+        if not out[b]["float64"] <= 1e-9:
+            fail(f"force at 1M ({b}, float64): {out[b]['float64']:.3e} of the "
+                 "largest force from pallas_t's: pairs differ")
+    print(f"force at 1M (the bench state after the packed path, "
+          f"{int(valid.sum())} particles, a fresh frame each; largest force "
+          f"{scale:.4e}): largest gap over it, of each engine from pallas_t "
+          f"in float64 (bar 1e-9) and float32, and of each float32 force "
+          f"from float64 pallas_t's: "
+          + json.dumps({b: {k: f"{v:.3e}" for k, v in d.items()}
+                        for b, d in out.items()})
+          + f"; fullest cell {occupancy['packed']}")
+    return out
+
+
 def check_huge_frame_route():
     """Frames of 2^24 cells or more: the bench scene at n_side=24 in a
     domain widened until its cell grid has that many cells, float32 on the
@@ -1614,7 +1838,8 @@ def time_guarded(sim, state):
 
 def check_gate_golden(tmp: str, backend: str):
     """The coupled gate case (``cases/fsi_gate``), float64, 100 steps on the
-    card through ``load_case`` on one backend, against
+    card through ``load_case`` on one backend (``packed`` at cell capacity
+    12, as the JAX package's goldens run it), against
     ``goldens/gate/gate100.prof.gz`` written by the reference binary.
     Tolerance: positions within 2.0e-6 m, the bar of the CPU tests (the
     ``%e`` six-digit floor plus drift)."""
@@ -1631,7 +1856,9 @@ def check_gate_golden(tmp: str, backend: str):
     cfg, grid = load_case(
         os.path.join(here, "goldens", "gate", "gate.data"),
         os.path.join(tmp, "gate.grid"), scene="dam",
-        numerics=NumericsConfig(dtype="float64", backend=backend))
+        numerics=NumericsConfig(
+            dtype="float64", backend=backend,
+            cell_capacity=12 if backend in ENGINES else None))
     sim = Simulation(cfg, grid)
     pw.reset_launch_counts()
     state, done, ok = sim.run_chunk_guarded(sim.state0, 100)
@@ -1691,7 +1918,10 @@ def run_cli_path(tmp: str, backend: str, cli_steps: int, scene="bench"):
     os.makedirs(tmp)
     j = lambda name: os.path.join(tmp, name.replace("bench", scene))  # noqa: E731
     if scene == "bench":
-        cfg0, grid0, module, margin = (bench_config(backend=backend),
+        # a candidate engine at the capacity the command line gives it in
+        # 2-D (16: the scene's fullest cells), not bench.py's 12
+        kw = {"cell_capacity": 16} if backend in ENGINES else {}
+        cfg0, grid0, module, margin = (bench_config(backend=backend, **kw),
                                        bench_grid(N_SIDE), "dam", "0.5")
     elif scene == "gate3d":
         cfg0, grid0 = gate3d_case(backend)
@@ -1757,10 +1987,13 @@ def run_cli_path(tmp: str, backend: str, cli_steps: int, scene="bench"):
     # 3-D
     nbr_lo, nbr_hi = (10, 60) if cfg.two_dimensional else (40, 200)
     for m in dumps:
+        # no window on the candidate engines; no cell past their capacity
+        windows_ok = (m["cell_overflow"] <= 16 and m["window_len"] == 0
+                      if backend in ENGINES else m["window_len"] > 0)
         if not (nbr_lo <= m["neighbor_max"] <= nbr_hi
                 and np.isfinite(m["max_speed"])
                 and 0 <= m["max_speed"] < 5.0 and m["cell_overflow"] > 0
-                and m["window_len"] > 0 and m["ghost_overflow"] == 0):
+                and windows_ok and m["ghost_overflow"] == 0):
             fail(f"cli path: metrics out of range: {m}")
     if not dumps[1]["max_speed"] > 0:
         fail("cli path: nothing moved")
@@ -2170,6 +2403,25 @@ def main() -> int:
               f"plane-padded frames, float64, 10 steps): card against CPU ok, "
               f"max |pos| difference {err3:.3e}, rebuilds {rebuilds3}")
 
+    # the candidate engines (plain torch ops) on small scenes, card against
+    # CPU
+    t0 = time.time()
+    for backend in ENGINES:
+        n_s, pos_err, rebuilds = check_small_scene(backend)
+        print(f"small coupled scene ({backend}; {n_s} particles, float64, 10 "
+              f"steps): card against CPU ok, max |pos| difference "
+              f"{pos_err:.3e}, rebuilds {rebuilds}")
+    n_tk, _, pos_err, vel_err, flag_err, rebuilds = check_turek_small("packed")
+    print(f"turek channel (packed; {n_tk} particles, the minimum image and no "
+          f"ghost rows, float64, 10 steps): card against CPU ok, max |pos| "
+          f"difference {pos_err:.3e}, |vel| {vel_err:.3e} (the flag's "
+          f"{flag_err:.3e}), rebuilds {rebuilds}")
+    n3, err3, rebuilds3 = check_small_scene("packed", three_d=True)
+    print(f"3-D dam break (packed; n_side 8, {n3} particles, float64, 10 "
+          f"steps): card against CPU ok, max |pos| difference {err3:.3e}, "
+          f"rebuilds {rebuilds3}")
+    print(f"candidate engines, small scenes: {time.time() - t0:.1f} s")
+
     tmp = tempfile.mkdtemp(prefix="fsi_smoke_")
     paths, launches = {}, {}
     try:
@@ -2179,6 +2431,12 @@ def main() -> int:
                   f"steps on the card) against the reference binary's "
                   f"golden: max position difference {gate_err:.3e} m (bar "
                   f"2.0e-6)")
+        t0 = time.time()
+        n_gate, gate_err = check_gate_golden(tmp, "packed")
+        print(f"gate case (packed, cell capacity 12 as the JAX goldens run; "
+              f"{n_gate} particles, float64, 100 steps on the card) against "
+              f"the reference binary's golden: max position difference "
+              f"{gate_err:.3e} m (bar 2.0e-6); {time.time() - t0:.1f} s")
         for backend, steps in (("pallas_t", 500), ("pallas", 100)):
             n_roll, dp, dw = check_rolling_golden(tmp, backend, steps)
             print(f"rolling case ({backend}; {n_roll} particles, rocking "
@@ -2214,6 +2472,26 @@ def main() -> int:
                         launches[(scene, k)] = counts[k] or diag[k]
                 del sim, state
                 torch.cuda.empty_cache()
+        # the candidate engines at full size, each path driven with the
+        # window kernels' counts at 0 and read just after (none may launch)
+        t0 = time.time()
+        for backend, scene in (("packed", "bench"), ("packed", "turek"),
+                               ("packed", "dam3d"), ("gather", "bench"),
+                               ("gather", "turek")):
+            t1 = time.time()
+            sim, state, paths[f"{scene}/{backend}"] = run_engine_path(
+                backend, scene)
+            if (backend, scene) == ("packed", "bench"):
+                time_diagnostics(sim, state, backend, scene)
+                bench_state = state
+            del sim, state
+            torch.cuda.empty_cache()
+            print(f"{scene} path ({backend}) phase: {time.time() - t1:.1f} s")
+        paths["force_gap_1m"] = check_force_gap(bench_state)
+        del bench_state
+        torch.cuda.empty_cache()
+        print(f"candidate engines at full size: {time.time() - t0:.1f} s")
+
         cells, _ = check_huge_frame_route()
         print(f"frames of 2^24 cells or more: {cells} cells, pallas_t "
               f"resolved to the row-major kernels, 3 steps bit-equal to "
@@ -2227,6 +2505,12 @@ def main() -> int:
         turek_cli_counts = run_cli_path(tmp, "pallas_t", CLI_STEPS, "turek")
         torch.cuda.empty_cache()
         gate3d_cli_counts = run_cli_path(tmp, "pallas_t", CLI_STEPS, "gate3d")
+        torch.cuda.empty_cache()
+        for backend in ENGINES:
+            torch.cuda.empty_cache()
+            t0 = time.time()
+            run_cli_path(tmp, backend, CLI_ROWS_STEPS)
+            print(f"cli path (bench, {backend}): {time.time() - t0:.1f} s")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     probe_row = time_microbench()

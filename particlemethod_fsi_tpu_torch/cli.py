@@ -100,8 +100,10 @@ def build_parser():
                    help="pairwise engine backend: the window sweeps "
                         "'pallas_t' (field-major kernels; 'auto' selects "
                         "it) and 'pallas' (row-major kernels, which also "
-                        "take any frame of 2^24 cells or more) run; "
-                        "'packed' and 'gather' are not ported and raise")
+                        "take any frame of 2^24 cells or more), or the "
+                        "candidate engines 'packed' and 'gather' (plain "
+                        "torch ops; a cell holds at most the .data's "
+                        "cell capacity, 16 in 2-D and 40 in 3-D by default)")
     p.add_argument("--rebuild-margin", type=float, default=None,
                    help="C8 knob: widen the candidate support by this many "
                         "l0 and skip frame rebuilds while displacement < "

@@ -141,11 +141,13 @@ class NumericsConfig:
     each means for the CUDA window-sweep kernels is said beside it."""
 
     dtype: str = "float32"  # compute dtype: "float32" (the card) or "float64" (CPU tests)
-    # pairwise backend.  This port implements the two window sweeps over the
-    # cell-sorted frame: "pallas_t" (field-major kernels; "auto" selects it,
-    # and a frame of 2^24 cells or more goes on to "pallas") and "pallas"
-    # (row-major kernels).  "packed" and "gather" are not ported yet and
-    # raise.
+    # pairwise backend: the two window sweeps over the cell-sorted frame,
+    # "pallas_t" (field-major kernels; "auto" selects it on any device, and
+    # a frame of 2^24 cells or more goes on to "pallas") and "pallas"
+    # (row-major kernels); and the candidate engines "packed" (the first
+    # cell_capacity rows of each neighbour cell, plain torch ops) and
+    # "gather" (a padded [N, max_neighbors] neighbour matrix, plain torch
+    # ops).  In the JAX package "auto" is "packed" off the TPU.
     backend: str = "auto"
     # receivers per window-table row = threads per CUDA thread block (one
     # thread per receiver).  None = 64.
@@ -161,10 +163,12 @@ class NumericsConfig:
     # the CUDA kernels always walk the offsets one after another inside one
     # thread block.
     pallas_merged: Optional[bool] = None
-    max_neighbors: int = 64  # K of the gather engine (not ported yet)
+    max_neighbors: int = 64  # K of the gather engine
     max_initial_neighbors: int = 64  # K0 for static structure neighbor rows
     # max particles per cell-list bucket (packed/gather engines only; the
-    # window sweep is exact and ignores it).
+    # window sweep is exact and ignores it).  None: 16 in 2-D, 40 in 3-D.
+    # Rows of a fuller cell are dropped from its candidates (the diagnostics'
+    # cell_overflow reports the fullest cell).
     cell_capacity: Optional[int] = None
     # C8 knob (the reference's disabled margin-refresh predicate,
     # src/main.cpp:1472-1494, 608-610): 0.0 = rebuild the sorted frame +

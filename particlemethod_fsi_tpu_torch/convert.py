@@ -3,7 +3,8 @@
 No counterpart in the JAX package.  Every function takes numpy arrays and
 plain dicts -- ``dataclasses.asdict`` of a ``CaseConfig``, ``KernelSet`` or
 ``CellGrid``; ``state.to_numpy``; the fields of a ``SolidStatic``,
-``SortedFrame``, ``TypeTables`` or ``PallasConfig`` as numpy arrays
+``SortedFrame``, ``NeighborList``, ``TypeTables`` or ``PallasConfig`` as
+numpy arrays
 (``{k: np.asarray(v) for k, v in obj._asdict().items()}``) -- and returns the
 port's object.  This module imports nothing of the JAX package, so the caller
 (a test, or a script that holds both packages) does the unpacking on its side.
@@ -25,7 +26,7 @@ from particlemethod_fsi_tpu_torch.config import (
     WallMotion,
 )
 from particlemethod_fsi_tpu_torch.ops.fluid import TypeTables
-from particlemethod_fsi_tpu_torch.ops.neighbors import CellGrid
+from particlemethod_fsi_tpu_torch.ops.neighbors import CellGrid, NeighborList
 from particlemethod_fsi_tpu_torch.ops.packed_engine import SortedFrame
 from particlemethod_fsi_tpu_torch.ops.smoothing import KernelSet
 from particlemethod_fsi_tpu_torch.ops.solid import SolidStatic
@@ -97,16 +98,32 @@ def state_from_numpy(d: dict, *, dtype: torch.dtype, device="cpu") -> ParticleSt
     )
 
 
-def sorted_frame_from_numpy(d: dict, *, dtype: torch.dtype,
-                            device="cpu") -> SortedFrame:
-    """Fields of a JAX ``SortedFrame`` (``cell_start`` and ``coords`` are
-    ignored) -> the port's SortedFrame."""
-    return SortedFrame(
+def sorted_frame_from_numpy(d: dict, *, dtype: torch.dtype, device="cpu",
+                            packed: bool = False) -> SortedFrame:
+    """Fields of a JAX ``SortedFrame`` -> the port's SortedFrame.  A window
+    frame's ``cell_start`` and ``coords`` are placeholders there and are
+    dropped; ``packed=True`` carries them (a frame of ``sort_frame(...,
+    with_cell_start=True)``, the packed engine's)."""
+    frame = SortedFrame(
         key=_as(d["key"], torch.int32, device),
         pos=_as(d["pos"], dtype, device),
         vel=_as(d["vel"], dtype, device),
         prop=_as(d["prop"], torch.int32, device),
         orig=_as(d["orig"], torch.int64, device),
+    )
+    if not packed:
+        return frame
+    return frame._replace(cell_start=_as(d["cell_start"], torch.int64, device),
+                          coords=_as(d["coords"], torch.int32, device))
+
+
+def neighbor_list_from_numpy(d: dict, device="cpu") -> NeighborList:
+    """Fields of a JAX ``NeighborList`` (``vars(nbr)``) -> the port's."""
+    return NeighborList(
+        idx=_as(d["idx"], torch.int64, device),
+        mask=_as(d["mask"], torch.bool, device),
+        count=_as(d["count"], torch.int32, device),
+        cell_overflow=_as(d["cell_overflow"], torch.int32, device),
     )
 
 

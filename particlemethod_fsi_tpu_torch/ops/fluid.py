@@ -1,10 +1,12 @@
 """Per-type property tables and role predicates of the fluid ops.
 
-Counterpart of ``particlemethod_fsi_tpu/ops/fluid.py``.  Ported:
-:class:`TypeTables` and :func:`is_structure`.  The per-particle EOS lives in
-the tail of :func:`particlemethod_fsi_tpu_torch.ops.windows_t.phase1_fields_t`
-(as in the JAX window backend); the gathered ``PairContext`` of the portable
-gather engine is not ported yet.
+Counterpart of ``particlemethod_fsi_tpu/ops/fluid.py``, all of it:
+:class:`TypeTables`, :func:`is_structure`, the gather engine's
+:class:`PairContext` / :func:`make_pair_context`, and the per-particle
+coefficient and EOS updates (:func:`physical_coefficients`,
+:func:`pressure_p`, :func:`pressure_a`) that the gather engine applies
+between its two phases.  The window sweeps and the packed engine apply the
+same EOS in their own phase-1 tails, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -13,7 +15,9 @@ from typing import NamedTuple
 
 import torch
 
-from particlemethod_fsi_tpu_torch.config import STRUCTURE_BEGIN, STRUCTURE_END
+from particlemethod_fsi_tpu_torch.config import (
+    STRUCTURE_BEGIN, STRUCTURE_END, TYPE_COUNT)
+from particlemethod_fsi_tpu_torch.ops.neighbors import NeighborList, min_image
 from particlemethod_fsi_tpu_torch.ops.smoothing import KernelSet
 
 
@@ -58,3 +62,68 @@ class TypeTables(NamedTuple):
 
 def is_structure(prop):
     return (prop >= STRUCTURE_BEGIN) & (prop < STRUCTURE_END)
+
+
+class PairContext(NamedTuple):
+    """Shared per-edge geometry for one neighbor-list phase."""
+
+    j: torch.Tensor  # [N,K] neighbor indices (0 where invalid)
+    mask: torch.Tensor  # [N,K]
+    xij: torch.Tensor  # [N,K,3] min-image x_j - x_i
+    rij2: torch.Tensor  # [N,K]
+    rij: torch.Tensor  # [N,K] (1 where invalid -- safe for division)
+    eij: torch.Tensor  # [N,K,3] unit vector (0 where invalid)
+    prop_i: torch.Tensor  # [N] (clipped to valid range)
+    prop_j: torch.Tensor  # [N,K]
+    ratio_ij: torch.Tensor  # [N,K] InteractionRatio[prop_i][prop_j]
+    ratio_ji: torch.Tensor  # [N,K] InteractionRatio[prop_j][prop_i]
+
+
+def _type_index(prop: torch.Tensor) -> torch.Tensor:
+    return torch.clamp(prop, 0, TYPE_COUNT - 1).long()
+
+
+def make_pair_context(pos: torch.Tensor, prop: torch.Tensor,
+                      nbr: NeighborList, domain_width,
+                      tables: TypeTables) -> PairContext:
+    j = nbr.idx
+    mask = nbr.mask
+    xij = min_image(pos[j] - pos[:, None, :], domain_width)
+    xij = torch.where(mask[..., None], xij,
+                      torch.zeros((), dtype=xij.dtype, device=xij.device))
+    rij2 = torch.sum(xij * xij, dim=-1)
+    rij = torch.sqrt(torch.where(mask & (rij2 > 0), rij2,
+                                 torch.ones_like(rij2)))
+    eij = xij / rij[..., None]
+    prop_i = _type_index(prop)
+    prop_j = prop_i[j]
+    ratio_ij = tables.interaction_ratio[prop_i[:, None], prop_j]
+    ratio_ji = tables.interaction_ratio[prop_j, prop_i[:, None]]
+    return PairContext(
+        j=j, mask=mask, xij=xij, rij2=rij2, rij=rij, eij=eij,
+        prop_i=prop_i, prop_j=prop_j, ratio_ij=ratio_ij, ratio_ji=ratio_ji,
+    )
+
+
+def physical_coefficients(prop, vol_strain, tables: TypeTables):
+    """Per-particle kappa (with unilateral clamp), lambda, mu
+    (calculatePhysicalCoefficients, src/main.cpp:2099-2137)."""
+    p = _type_index(prop)
+    kappa = torch.where(vol_strain < 0.0, torch.zeros_like(vol_strain),
+                        tables.bulk_modulus[p])
+    return kappa, tables.bulk_viscosity[p], tables.shear_viscosity[p]
+
+
+def pressure_p(vol_strain, divergence, kappa, lam):
+    """Base pressure EOS: P = -Lambda*div + [volstrain>0] kappa*volstrain
+    (calculatePressureP first loop, src/main.cpp:2387-2392; also duplicated in
+    calculateInterfaceForce, :2432-2437)."""
+    return -lam * divergence + torch.where(
+        vol_strain > 0.0, kappa * vol_strain, torch.zeros_like(vol_strain))
+
+
+def pressure_a(density_a_arr, ks: KernelSet, prop, tables: TypeTables):
+    """Attractive pressure, clamped to attraction only
+    (calculatePressureA first loop, src/main.cpp:2218-2223)."""
+    pa = tables.cof_a[_type_index(prop)] * (density_a_arr - ks.n0a) / ks.spacing
+    return torch.where(density_a_arr >= ks.n0a, torch.zeros_like(pa), pa)

@@ -1,7 +1,8 @@
 """PyTorch port vs JAX package: the command-line run, both driven in process
 on the coupled gate case (``cases/fsi_gate``, 6,724 particles, grid generated
 under ``tmp_path``), float64 on the CPU; the JAX command on its default
-backend there.
+backend there, or on the engine the port is given with ``--backend packed``
+or ``gather``.
 
 Tolerances.  Output files are compared after parsing, block by block (a
 vector's components together), to 1.5 units of the last printed digit (``%e``
@@ -109,30 +110,28 @@ def _log_shape(path, *, port):
     return out
 
 
-def test_one_interval_matches_the_jax_command(gate):
-    flags = ("--end-time", "0.002")
-    assert jcli.main(_argv(gate, gate / "j", *flags)) == 0
-    assert _run_port(gate, gate / "p", *flags) == 0
-
-    names = sorted(os.listdir(gate / "j"))
-    assert sorted(os.listdir(gate / "p")) == names == [
+def _same_interval(gate, jdir, pdir):
+    """The two commands' outputs of one 20-step interval agree: files,
+    parsed values to the print format, log lines, metrics."""
+    names = sorted(os.listdir(jdir))
+    assert sorted(os.listdir(pdir)) == names == [
         "gate.log", "gate000.prof", "gate000.vtk", "gate020.prof",
         "gate020.vtk", "m.jsonl"]
     for name in ("gate000.prof", "gate020.prof"):
-        got, want = read_grid_file(gate / "p" / name), read_grid_file(gate / "j" / name)
+        got, want = read_grid_file(pdir / name), read_grid_file(jdir / name)
         assert got.time == want.time and got.n == want.n == 6724
         np.testing.assert_array_equal(got.prop, want.prop)
         np.testing.assert_array_equal(got.domain_max, want.domain_max)
         for k in ("position", "initial_position", "velocity"):
             _columns_close(f"{name} {k}", getattr(got, k), getattr(want, k))
     # t = 0 is the input: byte for byte
-    assert ((gate / "p" / "gate000.prof").read_bytes()
-            == (gate / "j" / "gate000.prof").read_bytes())
-    moved = read_grid_file(gate / "p" / "gate020.prof")
+    assert ((pdir / "gate000.prof").read_bytes()
+            == (jdir / "gate000.prof").read_bytes())
+    moved = read_grid_file(pdir / "gate020.prof")
     assert float(np.abs(moved.velocity).max()) > 1e-3
 
     for name in ("gate000.vtk", "gate020.vtk"):
-        got, want = _parse_vtk(gate / "p" / name), _parse_vtk(gate / "j" / name)
+        got, want = _parse_vtk(pdir / name), _parse_vtk(jdir / name)
         assert list(got) == list(want) and len(want) == 27
         assert "VirialPressureAtParticle" in want and "neighbor" in want
         for k in want:
@@ -144,11 +143,11 @@ def test_one_interval_matches_the_jax_command(gate):
         assert float(np.abs(want["VirialPressureAtParticle"]).max()) > 0
         assert float(np.abs(want["stress11"]).max()) > 0 or name == "gate000.vtk"
 
-    assert (_log_shape(gate / "p" / "gate.log", port=True)
-            == _log_shape(gate / "j" / "gate.log", port=False))
-    assert "io writer: " in (gate / "p" / "gate.log").read_text()
-    jm = [json.loads(ln) for ln in open(gate / "j" / "m.jsonl")]
-    pm = [json.loads(ln) for ln in open(gate / "p" / "m.jsonl")]
+    assert (_log_shape(pdir / "gate.log", port=True)
+            == _log_shape(jdir / "gate.log", port=False))
+    assert "io writer: " in (pdir / "gate.log").read_text()
+    jm = [json.loads(ln) for ln in open(jdir / "m.jsonl")]
+    pm = [json.loads(ln) for ln in open(pdir / "m.jsonl")]
     assert [sorted(m) for m in pm] == [sorted(m) for m in jm] and len(jm) == 4
     for a, b in zip(pm, jm):
         for k in ("step", "chunk", "neighbor_max", "cell_overflow",
@@ -157,6 +156,28 @@ def test_one_interval_matches_the_jax_command(gate):
         for k in ("time", "max_speed", "kinetic_energy", "momentum_y"):
             if k in b:
                 assert a[k] == pytest.approx(b[k], rel=1e-9, abs=1e-15), k
+    return pm
+
+
+def test_one_interval_matches_the_jax_command(gate):
+    flags = ("--end-time", "0.002")
+    assert jcli.main(_argv(gate, gate / "j", *flags)) == 0
+    assert _run_port(gate, gate / "p", *flags) == 0
+    _same_interval(gate, gate / "j", gate / "p")
+
+
+@pytest.mark.parametrize("backend", ["packed", "gather"])
+def test_candidate_engines_match_the_jax_command(gate, backend):
+    """``--backend packed`` and ``--backend gather``: one interval of each
+    against the JAX command on the same engine (its diagnostics are the
+    packed engine's on both, with no window: ``window_len`` 0)."""
+    flags = ("--end-time", "0.002", "--backend", backend)
+    assert jcli.main(_argv(gate, gate / "j", *flags)) == 0
+    assert _run_port(gate, gate / "p", *flags) == 0
+    pm = _same_interval(gate, gate / "j", gate / "p")
+    dumps = [m for m in pm if "neighbor_max" in m]
+    assert len(dumps) == 2
+    assert all(m["window_len"] == 0 and m["cell_overflow"] > 0 for m in dumps)
 
 
 def test_diverging_dt_takes_the_same_watchdog_path(gate):
@@ -224,14 +245,10 @@ def test_without_a_device_flag_and_without_a_gpu_nothing_is_written(gate):
     with pytest.raises(SystemExit):
         pcli.main(argv + ["--device", "cuda"])
     assert os.listdir(out) == []
-    # flags of paths that are not ported are refused by name, not run some
-    # other way
+    # flags of paths that are not ported are refused, not run some other
+    # way
     with pytest.raises(SystemExit):
         pcli.main(argv + ["--device", "cpu", "--mesh", "4"])
-    with pytest.raises(NotImplementedError, match="backend"):
-        pcli.main(argv + ["--device", "cpu", "--backend", "packed"])
-    with pytest.raises(NotImplementedError, match="gather"):
-        pcli.main(argv + ["--device", "cpu", "--backend", "gather"])
 
 
 def test_bar_profile_matches_the_jax_command(tmp_path):

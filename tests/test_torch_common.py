@@ -59,6 +59,13 @@ def port_frame(jframe):
     return convert.sorted_frame_from_numpy(fields_np(jframe), dtype=F64)
 
 
+def port_packed_frame(jframe):
+    """A JAX frame of ``sort_frame(..., with_cell_start=True)``, with its
+    cell offsets and cell coordinates."""
+    return convert.sorted_frame_from_numpy(fields_np(jframe), dtype=F64,
+                                           packed=True)
+
+
 def port_statics(jsim):
     """(grid, kernels, tables, window config) of a JAX Simulation, as the
     port's objects."""
@@ -98,3 +105,38 @@ def bench_sims(n_side: int, backend: str = "pallas_t", **numerics_kw):
     jsim = bench.build_case(n_side, **kw)
     psim = build_case(n_side, device="cpu", **kw)
     return jsim, psim
+
+
+def close_to_scale(name, got, want, scale=None):
+    """rtol 1e-12, atol 1e-13 of the field's scale: the largest magnitude of
+    the field itself or, where the field is a difference of larger terms
+    (the EOS: kappa * (sum - n0)), of those terms."""
+    got = got.numpy() if isinstance(got, torch.Tensor) else np.asarray(got)
+    want = np.asarray(want)
+    assert got.shape == want.shape, name
+    if scale is None:
+        scale = float(np.max(np.abs(want)))
+    np.testing.assert_allclose(got, want, rtol=1e-12, atol=1e-13 * scale,
+                               err_msg=name)
+
+
+def field_scales(jsim, jf1):
+    """Magnitudes of the terms each EOS field is a difference of (tables
+    taken over the particle types present)."""
+    ks = jsim.kernels
+    present = np.unique(np.asarray(jsim.state0.prop))
+    present = present[present >= 0]
+    t = type(jsim.tables)(*[np.asarray(v)[present] for v in jsim.tables])
+    wp = float(np.max(np.abs(np.asarray(jf1["vol_strain"]) + ks.n0p)))
+    dvg = float(np.max(np.abs(np.asarray(jf1["divergence"]))))
+    da = max(float(np.max(np.abs(np.asarray(jf1["density_a"])))), ks.n0a)
+    pp = (float(np.max(np.asarray(t.bulk_modulus))) * wp
+          + float(np.max(np.asarray(t.bulk_viscosity))) * dvg)
+    pa = float(np.max(np.abs(np.asarray(t.cof_a)))) * da / ks.spacing
+    # the force is a sum over ~2 dozen neighbours of (P_i + P_j) dwp V terms
+    # that largely cancel (near-hydrostatic fluid), and it inherits the EOS
+    # amplification through P: scale it to those terms
+    norm_p = 1.0 / ks.swp / ks.radius_p**ks.dim_power
+    p_max = float(np.max(np.abs(np.asarray(jf1["pressure_p"]))))
+    force = 24 * 2 * (p_max + pp) * norm_p * (2.0 / ks.radius_p) * jsim.volume
+    return dict(vol_strain=wp, pressure_p=pp, pressure_a=pa, force=force)

@@ -77,6 +77,13 @@ def test_port_runs_with_jax_unimportable():
         rt = Simulation(*rolling_tank(n_side=8, numerics=nm), device="cpu")
         out = rt.run_chunk(rt.state0, 1)
         assert not rt._walls_static and bool(torch.isfinite(out.pos).all())
+        # the candidate engines, with no kernel launched
+        for engine in ("packed", "gather"):
+            ce = build_case(12, device="cpu", dtype="float64", backend=engine)
+            out = ce.run_chunk(ce.state0, 2)
+            assert bool(torch.isfinite(out.pos).all()) and ce.rebuilds == 2
+            assert ce.diagnostics(out)["window_overflow"] == 0
+        assert not any(windows.launch_counts.values())
         x, y = bf16_microbench.inputs(device="cpu")
         acc = bf16_microbench.run(x[:4], y[:4], torch.bfloat16, 2)
         assert acc.shape == (4, 1) and bool(torch.isfinite(acc).all())
@@ -109,6 +116,7 @@ def test_command_line_runs_with_jax_unimportable(tmp_path):
                      "io.grid_file", "utils.logging", "utils.watchdog",
                      "utils.checkpoint", "generator", "convert",
                      "ops.windows", "ops.windows_t", "ops.ghosts",
+                     "ops.edge_math", "ops.packed_engine", "ops.neighbors",
                      "models.turek", "models.cases",
                      "tools.bf16_microbench"):
             assert port.__name__ + "." + want in names, want

@@ -96,13 +96,14 @@ def test_step_rebuilds_every_time_and_keeps_its_input():
 @pytest.mark.parametrize("what", ["rolling", "bar_first_mode", "moving_wall",
                                   "3d", "backend"])
 def test_unported_paths_raise_by_name(what):
-    """What is not ported raises NotImplementedError at set-up, never a
-    silent other path: the ``packed`` and ``gather`` engines.  The paths
-    that earlier slices refused and this one ports run, against JAX
-    ``pallas_t``, three steps at the slice's bars: Rolling (rocking walls),
-    the bar's first-mode profile, prescribed wall motion (translation and
-    an in-plane rotation: the frame stays planar) and a 3-D frame with
-    several z-planes of cells (plane-padded)."""
+    """The paths that earlier slices refused run, each against its JAX
+    path, three steps at the slice's bars: Rolling (rocking walls), the
+    bar's first-mode profile, prescribed wall motion (translation and an
+    in-plane rotation: the frame stays planar) and a 3-D frame with several
+    z-planes of cells (plane-padded), against JAX ``pallas_t``; and the
+    ``packed`` and ``gather`` engines (once refused with
+    NotImplementedError), each against the same JAX engine, rebuilding
+    every step with no ghost plan and no plane padding."""
     from cases import config_3d, mini_bar, mini_dam, mini_dam_3d
     from particlemethod_fsi_tpu.config import WallMotion
 
@@ -110,9 +111,20 @@ def test_unported_paths_raise_by_name(what):
     cfg = dam_like_config(**WINDOW_KW)
     if what == "backend":
         for backend in ("packed", "gather"):
-            with pytest.raises(NotImplementedError, match=backend):
-                Simulation(port_cfg(dam_like_config(backend=backend)),
-                           port_grid(grid), device="cpu")
+            cfg = dam_like_config(backend=backend, rebuild_margin=0.5)
+            jsim = JaxSimulation(cfg, grid)
+            psim = Simulation(port_cfg(cfg), port_grid(grid), device="cpu")
+            assert psim._backend == jsim._backend == backend
+            assert psim.cell_capacity == jsim.cell_capacity == 16
+            want = jax_to_numpy(jsim.run_chunk(jsim.state0, 3), jsim.n)
+            got = to_numpy(psim.run_chunk(psim.state0, 3), psim.n)
+            assert psim.rebuilds == 3 and psim._ghosts is None
+            assert not psim._pad_planes and psim.ghost_refreshes == 0
+            np.testing.assert_allclose(got["pos"], want["pos"], rtol=1e-12,
+                                       atol=1e-15)
+            np.testing.assert_allclose(got["vel"], want["vel"], rtol=1e-9,
+                                       atol=1e-13)
+            assert float(np.abs(got["pos"] - grid.position).max()) > 0
         return
     if what == "rolling":
         cfg = cfg.replace(scene=SCENES["rolling"])

@@ -279,6 +279,25 @@ def test_state_before_the_crossing_matches_jax_packed():
     assert float(np.abs(got["vel"][:, :2] - v0[:, :2]).max()) > 1e-3
 
 
+def test_packed_through_the_crossing_matches_jax_packed():
+    """The port's own ``packed`` engine through the crossing: the minimum
+    image of every pair and the cell wrap, no ghost plan; each chunk's end
+    equals JAX ``packed``'s."""
+    cfg = _config()
+    sim = Simulation(port_cfg(cfg.replace(numerics=dataclasses.replace(
+        cfg.numerics, backend="packed"))),
+        _scene(BoidScene, Primitive, generate_grid), device="cpu")
+    want = _drift_packed()
+    state = sim.state0
+    for chunk in want[1:]:
+        state = sim.run_chunk(state, CHUNK)
+        _agree(to_numpy(state, len(chunk["prop"])), chunk)
+    assert _wraps(sim, state)
+    assert sim._ghosts is None and sim.ghost_refreshes == 0
+    assert not sim.refresh_ghosts(state)
+    assert sim.rebuilds == CHUNK * (len(want) - 1)
+
+
 def test_cli_runs_through_the_crossing(tmp_path):
     """The command line runs through the crossing to its end: every output
     is written, the log says where the plan was built (once), and the last
