@@ -1479,10 +1479,6 @@ def run_path(backend: str, scene: str = "bench"):
             fail(f"turek path: max speed {speed}, mean fluid vx {mean_vx}")
 
     # where the step's time goes: intervals between the marks of each step
-    spans: dict = {}
-    for (_, a), (name, b) in zip(events, events[1:]):
-        if name != "begin":
-            spans[name] = spans.get(name, 0.0) + a.elapsed_time(b)
     label = {"read": ("inlet, wrap, extremes, rebuild test and the read"
                       if backend == "pallas_t"
                       else "inlet, wrap, extremes and the read"),
@@ -1496,7 +1492,8 @@ def run_path(backend: str, scene: str = "bench"):
              "phase2": "phase 2",
              "integrate": "gravity, unsort, kick, convection",
              "solid": "elastic solid"}
-    breakdown = {label[k]: v / chunk for k, v in spans.items()}
+    breakdown = {label[k]: v
+                 for k, v in section_breakdown(events, chunk).items()}
     ms = float(np.median(chunk_ms))
     print(f"{scene} path ({backend}): {sim.n} particles ({sim.n_pad} slots, "
           f"{ghosts} ghost rows), float32, set-up {setup_s:.1f} s, {steps} "
@@ -1665,10 +1662,6 @@ def run_engine_path(backend: str, scene: str):
         if not (0 < speed < 5.0 and 0.3 < mean_vx < 1.0):
             fail(f"{what}: max speed {speed}, mean fluid vx {mean_vx}")
 
-    spans: dict = {}
-    for (_, a), (name, b) in zip(events, events[1:]):
-        if name != "begin":
-            spans[name] = spans.get(name, 0.0) + a.elapsed_time(b)
     label = {"read": "inlet, wrap (and the guard's read)",
              "frame": "sort with cell offsets",
              "neighbors": "neighbour list (sort, cell table, candidates, "
@@ -1679,7 +1672,8 @@ def run_engine_path(backend: str, scene: str):
              "phase2": "phase 2", "integrate": "gravity, unsort, kick, "
                                                "convection",
              "solid": "elastic solid"}
-    breakdown = {label[k]: v / chunk for k, v in spans.items()}
+    breakdown = {label[k]: v
+                 for k, v in section_breakdown(events, chunk).items()}
     ms = float(np.median(chunk_ms))
     print(f"{what}: {sim.n} particles ({sim.n_pad} slots), float32, cell "
           f"capacity {cap}, set-up {setup_s:.1f} s, {steps} steps, rebuilds "
@@ -2067,6 +2061,520 @@ def run_cli_path(tmp: str, backend: str, cli_steps: int, scene="bench"):
           f"{dumps[1]['window_len']}; the log's buckets [s]: "
           + json.dumps(buckets))
     return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 6b: multi-device over torch.distributed (parallel/), launched as the
+# command line launches: one process a rank
+# ---------------------------------------------------------------------------
+
+HALO_CHUNK = 20  # steps a chunk of the 1M halo path (a warm-up and three)
+ALLGATHER_CHUNK = 10  # the 1M all-gather path (a warm-up of 5 and two)
+WAVE_SCALE = 0.46  # models.wave: 1,110,766 particles
+WAVE_STEPS = 20
+SHARED_SCALE = 0.2  # models.wave: 130,734 particles, two ranks on one card
+SHARED_STEPS = 10
+MULTI_CLI_STEPS = 20  # the gate case's one output interval
+
+
+def wave_case(scale: float, dtype: str = "float32"):
+    """``cases/wave`` as ``execute.sh`` runs it: the port's lattice
+    (``models/wave.py``) at ``scale``, the physics of ``wave.data`` with
+    the time steps scaled to the spacing, scene ``dam``, C8 margin 0.5.
+    Returns ``(cfg, grid)``."""
+    import dataclasses
+
+    from particlemethod_fsi_tpu_torch.config import SCENES, NumericsConfig
+    from particlemethod_fsi_tpu_torch.io.data_file import parse_data_file
+    from particlemethod_fsi_tpu_torch.models import wave
+
+    dt, edt = wave.steps(scale)
+    cfg = dataclasses.replace(
+        parse_data_file(wave.DATA_FILE), scene=SCENES["dam"],
+        two_dimensional=False, dt=dt, elastic_dt=edt,
+        numerics=NumericsConfig(rebuild_margin=0.5, dtype=dtype))
+    return cfg, wave.wave_grid(scale)
+
+
+def hold_at_halo_bars(name: str, got, want, n: int):
+    """Two slot-ordered states at the CPU halo tests' bars: types equal,
+    positions within rtol 1e-10 and atol 1e-14, velocities within rtol
+    1e-8 and atol 1e-13.  Returns the largest position and velocity gaps."""
+    import torch
+
+    if not torch.equal(got.prop[:n], want.prop[:n]):
+        fail(f"{name}: the types differ")
+    gaps = []
+    for k, rtol, atol in (("pos", 1e-10, 1e-14), ("vel", 1e-8, 1e-13)):
+        a, b = getattr(got, k)[:n].double(), getattr(want, k)[:n].double()
+        d = (a - b).abs()
+        if not bool((d <= atol + rtol * b.abs()).all()):
+            fail(f"{name}: {k} differs by up to {float(d.max()):.3e}")
+        gaps.append(float(d.max()))
+    return gaps
+
+
+def section_breakdown(events, steps: int) -> dict:
+    """ms/step of each section between a step's CUDA event marks."""
+    spans: dict = {}
+    for (_, a), (name, b) in zip(events, events[1:]):
+        if name != "begin":
+            spans[name] = spans.get(name, 0.0) + a.elapsed_time(b)
+    return {k: v / steps for k, v in spans.items()}
+
+
+def halo_frame_rows(sim, runner, state) -> tuple:
+    """Kernels 1 and 2 in float32 on one halo frame of ``runner`` (the
+    frame a rebuilding step builds from ``state``: own rows, the two x
+    ghost strips in the grid's ghost layer, the structure rows), against
+    their plain versions at the main path's bars, timed warm and cold, with
+    the roofline bound of that frame; and the frame's window lengths."""
+    import torch
+    from particlemethod_fsi_tpu_torch.ops import windows as pw
+    from particlemethod_fsi_tpu_torch.ops import windows_t as pwt
+    from particlemethod_fsi_tpu_torch.ops.packed_engine import SortedFrame
+
+    grid, ks, wcfg, tables = (runner.frame_grid, sim.kernels, sim._pcfg,
+                              sim.tables)
+    frame, win = runner.frame(state)
+    frame64 = SortedFrame(key=frame.key, pos=frame.pos.double(),
+                          vel=frame.vel.double(), prop=frame.prop,
+                          orig=frame.orig)
+    tables64 = type(tables).from_config(sim.cfg, ks, torch.float64,
+                                        sim.device)
+    offs, _ = pw.row_offsets(grid)
+    n = frame.pos.shape[0]
+    true_pairs = float(pwt.phase1_sweep_plain(
+        frame, *win, offs, ks, wcfg, tables, support=ks.radius_p,
+        count=True)[pwt.P1_COUNT].double().sum())
+    table_bytes = (win[0].numel() + win[1].numel()) * 4
+    d3 = int(not sim.cfg.two_dimensional)
+    src = "particlemethod_fsi_tpu/ops/pallas_windows_t.py"
+    p1 = dict(support=grid.support)
+    rows = [kernel_row(
+        "phase1_sweep", "phase1_sweep.cu", f"{src}:172",
+        lambda: pwt.phase1_sweep(frame, *win, offs, ks, wcfg, tables, **p1),
+        lambda: pwt.phase1_sweep_plain(frame, *win, offs, ks, wcfg, tables,
+                                       **p1),
+        lambda: pwt.phase1_sweep_plain(frame64, *win, offs, ks, wcfg,
+                                       tables64, **p1),
+        n * BYTES_PER_PARTICLE["phase1_sweep"][d3] + table_bytes,
+        true_pairs * FLOP_PER_PAIR["phase1_sweep"][d3])]
+    f1 = pwt.phase1_fields_t(frame, grid, ks, tables, cfg=wcfg, windows=win)
+    pp, pa, gc = f1["pressure_p"], f1["pressure_a"], f1["gravity_center"]
+    invmu = pwt.inverse_viscosity(f1["mu"])
+    kw = dict(volume=sim.volume, two_dimensional=sim.cfg.two_dimensional)
+    a32 = (frame, pp, pa, gc, invmu, *win, offs, ks, wcfg, tables)
+    a64 = (frame64, pp.double(), pa.double(), gc.double(), invmu.double(),
+           *win, offs, ks, wcfg, tables64)
+    rows.append(kernel_row(
+        "phase2_sweep", "phase2_sweep.cu", f"{src}:330",
+        lambda: pwt.phase2_sweep(*a32, **kw),
+        lambda: pwt.phase2_sweep_plain(*a32, **kw),
+        lambda: pwt.phase2_sweep_plain(*a64, **kw),
+        n * BYTES_PER_PARTICLE["phase2_sweep"][d3] + table_bytes,
+        true_pairs * FLOP_PER_PAIR["phase2_sweep"][d3]))
+    keep = ("name", "ms", "cold_l2_ms", "plain_ms", "bound_ms", "bound_by",
+            "max_abs_err", "roofline_share", "bound_bytes")
+    windows = dict(rows=n, longest=int(win[1].max()),
+                   mean=float(win[1].double().mean()),
+                   pairs_per_receiver=true_pairs / n)
+    return [{k: r[k] for k in keep} for r in rows], windows
+
+
+def frame_kernel_ms(sim, grid, frame, win) -> dict:
+    """Warm ms of kernels 1 and 2 on a frame (its windows ``win``), timed
+    alone: phase 2 on the fields of phase 1 + EOS."""
+    from particlemethod_fsi_tpu_torch.ops import windows as pw
+    from particlemethod_fsi_tpu_torch.ops import windows_t as pwt
+
+    ks, wcfg, tables = sim.kernels, sim._pcfg, sim.tables
+    offs, _ = pw.row_offsets(grid)
+    f1 = pwt.phase1_fields_t(frame, grid, ks, tables, cfg=wcfg, windows=win)
+    fields = pwt._phase2_inputs_t(f1, wcfg)
+    kw = dict(volume=sim.volume, two_dimensional=sim.cfg.two_dimensional)
+    return dict(
+        phase1_sweep=time_ms(lambda: pwt.phase1_sweep(
+            frame, *win, offs, ks, wcfg, tables, support=grid.support), 20),
+        phase2_sweep=time_ms(lambda: pwt.phase2_sweep(
+            frame, *fields, *win, offs, ks, wcfg, tables, **kw), 20))
+
+
+def halo_path_1m(comm) -> dict:
+    """(a) The halo at 1M (the bench scene), one rank: float64 for 5 steps
+    against the one-device pallas_t on the card at the CPU halo bars; then
+    float32, a warm-up chunk and three timed chunks, sections by CUDA
+    events, launches, rebuilds, overflow (0); kernels 1 and 2 on one halo
+    frame; the launches of one diagnostics call on the gathered state."""
+    import torch
+    from particlemethod_fsi_tpu_torch.models import build_case
+    from particlemethod_fsi_tpu_torch.ops import windows as pw
+    from particlemethod_fsi_tpu_torch.parallel import halo
+
+    out = {}
+    t0 = time.time()
+    sim = build_case(N_SIDE, device=comm.device, dtype="float64")
+    runner = halo.make_halo_step(sim, comm)
+    state = halo.partition_state(sim, comm, runner.hcfg)
+    ref = sim.run_chunk(sim.state0, 5)
+    state, over = runner.run_chunk(state, 5)
+    if over:
+        fail(f"halo at 1M (float64): overflow {over}")
+    got = halo.to_slot_state(sim, comm, state)
+    pos_gap, vel_gap = hold_at_halo_bars("halo at 1M (float64)", got, ref,
+                                         sim.n)
+    out["float64"] = dict(pos_gap=pos_gap, vel_gap=vel_gap,
+                          rebuilds=runner.last_chunk_rebuilds,
+                          one_device_rebuilds=sim.last_chunk_rebuilds,
+                          seconds=time.time() - t0)
+    del sim, runner, state, ref, got
+    torch.cuda.empty_cache()
+
+    t0 = time.time()
+    sim = build_case(N_SIDE, device=comm.device)
+    runner = halo.make_halo_step(sim, comm)
+    if runner.engine != "pallas_t" or not runner.use_c8:
+        fail(f"halo at 1M: local engine {runner.engine}, C8 {runner.use_c8}")
+    state = halo.partition_state(sim, comm, runner.hcfg)
+    torch.cuda.synchronize()
+    setup_s = time.time() - t0
+    pw.reset_launch_counts()
+    state, over = runner.run_chunk(state, HALO_CHUNK)  # warm-up
+    rebuilds = runner.last_chunk_rebuilds
+    chunk_ms = []
+    for c in range(TIMED_CHUNKS):
+        if c == TIMED_CHUNKS - 1:
+            sim.profile_events = []
+        torch.cuda.synchronize()
+        t0 = time.time()
+        state, o = runner.run_chunk(state, HALO_CHUNK)
+        torch.cuda.synchronize()
+        chunk_ms.append((time.time() - t0) * 1e3 / HALO_CHUNK)
+        over, rebuilds = max(over, o), rebuilds + runner.last_chunk_rebuilds
+    events, sim.profile_events = sim.profile_events, None
+    counts = dict(pw.launch_counts)
+    steps = HALO_CHUNK * (TIMED_CHUNKS + 1)
+    want = dict.fromkeys(counts, 0)
+    want.update(phase1_sweep=steps, phase2_sweep=steps)
+    if counts != want:
+        fail(f"halo at 1M: launch counts {counts} after {steps} steps")
+    if over:
+        fail(f"halo at 1M: overflow {over}")
+    if not 0 < rebuilds < steps:
+        fail(f"halo at 1M: {rebuilds} rebuilds in {steps} steps")
+    if not bool(torch.isfinite(state.pos).all()):
+        fail("halo at 1M: positions are not all finite")
+    rows, windows = halo_frame_rows(sim, runner, state)
+    for r in rows:
+        r["launches"] = steps
+        r["frame_rows"] = windows["rows"]
+    pw.reset_launch_counts()
+    d = sim.diagnostics(halo.to_slot_state(sim, comm, state))
+    diag_counts = dict(pw.launch_counts)
+    if not np.isfinite(d["virial_pressure"]).all():
+        fail("halo at 1M: diagnostics of the gathered state not finite")
+    out["float32"] = dict(
+        hcfg=tuple(runner.hcfg), frame_rows=runner.n_rows, setup_s=setup_s,
+        chunk_ms=chunk_ms, ms_per_step=float(np.median(chunk_ms)),
+        rebuilds=rebuilds, steps=steps, overflow=over, launches=counts,
+        diagnostics_launches=diag_counts,
+        breakdown=section_breakdown(events, HALO_CHUNK), windows=windows,
+        peak_mib=torch.cuda.max_memory_allocated() / 2**20)
+    return out, rows
+
+
+def allgather_path_1m(comm) -> dict:
+    """(b) The all-gather mode at 1M (the bench scene, one rank, the packed
+    engine at cell capacity 16): two steps against the one-device packed
+    step, then a warm-up and two timed chunks; no window kernel."""
+    import torch
+    from particlemethod_fsi_tpu_torch.models import build_case
+    from particlemethod_fsi_tpu_torch.ops import windows as pw
+    from particlemethod_fsi_tpu_torch.parallel import sharding
+
+    sim = build_case(N_SIDE, device=comm.device, backend="packed",
+                     cell_capacity=16)
+    run = sharding.make_sharded_runner(sim, comm)
+    state = sharding.shard_state(sim, comm, sim.state0)
+    pw.reset_launch_counts()
+    ref = sim.run_chunk(sim.state0, 2)
+    state = run(state, 2)
+    gap = float((sharding.gather_state(comm, state).pos - ref.pos)
+                .abs().max())
+    del ref
+    state = run(state, 5)
+    chunk_ms = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        state = run(state, ALLGATHER_CHUNK)
+        torch.cuda.synchronize()
+        chunk_ms.append((time.time() - t0) * 1e3 / ALLGATHER_CHUNK)
+    if any(pw.launch_counts.values()):
+        fail(f"all-gather at 1M: window kernels launched {pw.launch_counts}")
+    if not bool(torch.isfinite(state.pos).all()):
+        fail("all-gather at 1M: positions are not all finite")
+    if not gap <= 1e-6:
+        fail(f"all-gather at 1M: {gap:.3e} m from the one-device step")
+    return dict(gap_from_one_device=gap, chunk_ms=chunk_ms,
+                ms_per_step=float(np.median(chunk_ms)),
+                peak_mib=torch.cuda.max_memory_allocated() / 2**20)
+
+
+def wave_paths(comm) -> dict:
+    """(c) The wave at scale ``WAVE_SCALE`` (3-D, ~1.1M particles), float32:
+    one device on pallas_t (plane-padded frame) and the halo at one rank
+    (its frame is not plane-padded, as in the JAX package), a warm-up of 2
+    steps and ``WAVE_STEPS`` timed each; the window lengths of both frames
+    at the start state."""
+    import torch
+    from particlemethod_fsi_tpu_torch.ops import windows as pw
+    from particlemethod_fsi_tpu_torch.parallel import halo
+    from particlemethod_fsi_tpu_torch.solver import Simulation
+
+    cfg, grid = wave_case(WAVE_SCALE)
+    sim = Simulation(cfg, grid, device=comm.device)
+    if sim._ghosts is not None or not sim._pad_planes:
+        fail("wave: a periodic axis, or no plane padding, on one device")
+    frame = sim._frame(sim.state0.pos, sim.state0.vel, sim.state0.prop)
+    win1 = pw.compute_windows(frame, sim._frame_grid, sim._pcfg)
+    out = dict(n=sim.n, one_device_windows=dict(
+        rows=frame.pos.shape[0], longest=int(win1[1].max()),
+        mean=float(win1[1].double().mean())),
+        one_device_kernel_ms=frame_kernel_ms(sim, sim._frame_grid, frame,
+                                             win1))
+    del frame, win1
+    state = sim.run_chunk(sim.state0, 2)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    state = sim.run_chunk(state, WAVE_STEPS)
+    torch.cuda.synchronize()
+    out["one_device_ms"] = (time.time() - t0) * 1e3 / WAVE_STEPS
+    one = state
+    runner = halo.make_halo_step(sim, comm)
+    if runner.engine != "pallas_t":
+        fail(f"wave halo: local engine {runner.engine}")
+    hstate = halo.partition_state(sim, comm, runner.hcfg)
+    _, (_, wl) = runner.frame(hstate)
+    out["halo_windows"] = dict(rows=runner.n_rows, longest=int(wl.max()),
+                               mean=float(wl.double().mean()))
+    hstate, over = runner.run_chunk(hstate, 2)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    hstate, o = runner.run_chunk(hstate, WAVE_STEPS)
+    torch.cuda.synchronize()
+    out["halo_ms"] = (time.time() - t0) * 1e3 / WAVE_STEPS
+    out.update(overflow=max(over, o), rebuilds=runner.last_chunk_rebuilds,
+               hcfg=tuple(runner.hcfg))
+    if out["overflow"]:
+        fail(f"wave halo: overflow {out['overflow']}")
+    got = halo.to_slot_state(sim, comm, hstate)
+    if not bool(torch.isfinite(got.pos).all()):
+        fail("wave halo: positions are not all finite")
+    # kernels 1 and 2 on the 3-D halo frame (no plane pads: windows across
+    # plane ends), held against their plain versions
+    out["halo_kernels"], _ = halo_frame_rows(sim, runner, hstate)
+    out["float32_gap_from_one_device"] = float(
+        (got.pos[:sim.n] - one.pos[:sim.n]).abs().max())
+    return out
+
+
+def multi_device_rank(comm) -> dict:
+    """The one-rank process of phases (a)-(c) (NCCL, the card of rank 0)."""
+    a, rows = halo_path_1m(comm)
+    return dict(transport=comm.transport, halo=a, rows=rows,
+                allgather=allgather_path_1m(comm), wave=wave_paths(comm))
+
+
+def shared_card_phase() -> dict:
+    """(d) Two ranks sharing the card (``gloo-host``): the wave at scale
+    ``SHARED_SCALE`` in float64 for ``SHARED_STEPS`` steps through the halo
+    at equal-count planes, against one device on the card at the CPU halo
+    bars; the structure bit-equal on both ranks, overflow 0; the host time
+    of the exchange a step."""
+    import torch
+    import types
+
+    from particlemethod_fsi_tpu_torch.parallel import halo, launch
+    from particlemethod_fsi_tpu_torch.solver import Simulation
+
+    cfg, grid = wave_case(SHARED_SCALE, dtype="float64")
+    sim = Simulation(cfg, grid)
+    splits = halo.compute_splits(sim, 2, sim.state0.pos, sim.state0.prop >= 0)
+    hcfg = halo.default_halo_config(sim, 2, splits=splits)
+    ref = sim.run_chunk(sim.state0, SHARED_STEPS)
+    job = dict(mode="halo", cfg=cfg, grid=grid, hcfg=tuple(hcfg),
+               splits=splits, script=[("run", SHARED_STEPS), ("gather",)])
+    t0 = time.time()
+    ranks = launch.spawn(launch.run_jobs, 2, [job], transport="gloo-host",
+                         timeout=300)
+    wall_s = time.time() - t0
+    (setup, run, gathered), other = ranks[0]["jobs"][0], ranks[1]["jobs"][0]
+    if setup["engine"] != "pallas_t" or run["overflow"]:
+        fail(f"shared card: engine {setup['engine']}, overflow "
+             f"{run['overflow']}")
+    if not np.array_equal(gathered["s_pos"], other[2]["s_pos"]):
+        fail("shared card: the structure differs between the two ranks")
+    g = gathered["state"]
+    slot = dict(prop=np.full(sim.n_pad, -1, np.int32),
+                pos=np.zeros((sim.n_pad, 3)), vel=np.zeros((sim.n_pad, 3)))
+    for k in slot:
+        slot[k][g["oid"]] = g[k]
+    got = types.SimpleNamespace(**{k: torch.as_tensor(v).to(sim.device)
+                                   for k, v in slot.items()})
+    pos_gap, vel_gap = hold_at_halo_bars("shared card (float64)", got, ref,
+                                         sim.n)
+    return dict(n=sim.n, hcfg=tuple(hcfg), pos_gap=pos_gap, vel_gap=vel_gap,
+                step_ms=run["seconds"] * 1e3 / SHARED_STEPS,
+                exchange_ms=run["comm_seconds"] * 1e3 / SHARED_STEPS,
+                exchanges=run["comm_calls"] / SHARED_STEPS,
+                rebuilds=run["rebuilds"], spawn_s=wall_s)
+
+
+def multichip_cli_phase(tmp: str) -> dict:
+    """(e) The command line on the gate case (``cases/fsi_gate``, the grid
+    of ``gate.boid`` through the port's generator, 6,724 particles),
+    float64, one output interval of 20 steps: ``--mesh 1`` in the halo and
+    the all-gather mode against one device (pallas_t for the halo, packed
+    for the all-gather, whose engine it is), within 1e-9 and 1e-12 m on
+    the ``.prof``; ``--mesh 2`` on the one card returns 1 with the JAX
+    command's message and writes no ``.prof``."""
+    import re
+
+    from particlemethod_fsi_tpu_torch import cli
+    from particlemethod_fsi_tpu_torch.generator import generate_case
+    from particlemethod_fsi_tpu_torch.io.grid_file import read_grid_file
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    d = os.path.join(tmp, "mesh-cli")
+    os.makedirs(d)
+    shutil.copy(os.path.join(here, "cases", "fsi_gate", "gate.boid"), d)
+    generate_case(os.path.join(d, "gate"))
+    text = open(os.path.join(here, "cases", "fsi_gate", "gate.data")).read()
+    interval = MULTI_CLI_STEPS * 1e-4
+    for key in ("OutputInterval", "VtkOutputInterval"):
+        text = re.sub(rf"(?m)^{key}\s+\S+", f"{key}\t{interval}", text)
+    with open(os.path.join(d, "gate.data"), "w") as f:
+        f.write(text)
+
+    def run(tag, *flags):
+        out = os.path.join(d, tag)
+        os.makedirs(out)
+        t0 = time.time()
+        rc = cli.main([os.path.join(d, "gate.data"),
+                       os.path.join(d, "gate.grid"),
+                       os.path.join(out, "g%03d.prof"),
+                       os.path.join(out, "g%03d.vtk"),
+                       os.path.join(out, "g.log"), "4", "--scene", "dam",
+                       "--dtype", "float64", "--end-time", str(interval),
+                       *flags])
+        return rc, out, time.time() - t0
+
+    res = {}
+    profs = {}
+    for tag, flags in (("one-pallas_t", ()), ("one-packed", ("--backend",
+                                                            "packed")),
+                       ("halo", ("--mesh", "1", "--mode", "halo")),
+                       ("allgather", ("--mesh", "1", "--mode",
+                                      "allgather"))):
+        rc, out, secs = run(tag, *flags)
+        if rc != 0:
+            fail(f"mesh cli ({tag}): exit code {rc}")
+        profs[tag] = read_grid_file(os.path.join(
+            out, f"g{MULTI_CLI_STEPS:03d}.prof"))
+        res[tag] = dict(seconds=secs)
+        log = open(os.path.join(out, "g.log")).read()
+        if tag in ("halo", "allgather") and (
+                f"multi-chip: mode={tag} mesh=1x1 devices platform=cuda"
+                not in log or "ranks: 1 processes, transport nccl" not in log):
+            fail(f"mesh cli ({tag}): log lines missing:\n{log[-1500:]}")
+        if tag == "halo" and "engine=pallas_t" not in log:
+            fail("mesh cli (halo): the local engine is not pallas_t")
+    for tag, ref, bar in (("halo", "one-pallas_t", 1e-9),
+                          ("allgather", "one-packed", 1e-12)):
+        gap = float(np.abs(profs[tag].position - profs[ref].position).max())
+        if profs[tag].n != 6724 or not gap <= bar:
+            fail(f"mesh cli ({tag}): {profs[tag].n} particles, {gap:.3e} m "
+                 f"from one device")
+        res[tag]["gap"] = gap
+    rc, out, _ = run("mesh2", "--mesh", "2")
+    log = open(os.path.join(out, "g.log")).read()
+    if (rc != 1 or "ERROR: mesh of 2 devices but only 1 visible" not in log
+            or any(f.endswith(".prof") for f in os.listdir(out))):
+        fail(f"mesh cli (--mesh 2 on one card): exit code {rc}, log "
+             f"{log[-500:]!r}")
+    res["mesh2_exit_code"] = rc
+    return res
+
+
+def run_multi_device(tmp: str, paths: dict) -> dict:
+    """Phases (a)-(e); prints a line each and returns the numbers."""
+    import torch
+    from particlemethod_fsi_tpu_torch.parallel import launch
+
+    t0 = time.time()
+    torch.cuda.empty_cache()
+    (res,) = launch.spawn(multi_device_rank, 1, transport="nccl",
+                          timeout=900)
+    a, b, c = res["halo"], res["allgather"], res["wave"]
+    a32 = a["float32"]
+    one = paths.get("bench/pallas_t", {}).get("ms_per_step")
+    packed = paths.get("bench/packed", {}).get("ms_per_step")
+    print(f"halo at 1M (bench, 1 rank, {res['transport']}): float64 5 steps "
+          f"against one device on the card: max |pos| {a['float64']['pos_gap']:.3e} m, "
+          f"|vel| {a['float64']['vel_gap']:.3e} m/s (bars rtol 1e-10 / 1e-8), "
+          f"rebuilds {a['float64']['rebuilds']} ({a['float64']['one_device_rebuilds']} "
+          f"on one device); float32: caps {a32['hcfg']}, frame rows "
+          f"{a32['frame_rows']}, ms/step by chunk "
+          f"{[round(m, 3) for m in a32['chunk_ms']]}, median "
+          f"{a32['ms_per_step']:.3f} (one device {one}), rebuilds "
+          f"{a32['rebuilds']} in {a32['steps']} steps, overflow "
+          f"{a32['overflow']}, launches {json.dumps(a32['launches'])}, a "
+          f"diagnostics call's {json.dumps(a32['diagnostics_launches'])}, "
+          f"peak {a32['peak_mib']:.0f} MiB")
+    print("halo at 1M, ms/step by section (CUDA events, last chunk): "
+          + json.dumps({k: round(v, 4) for k, v in a32["breakdown"].items()})
+          + f"; the halo frame's windows {json.dumps(a32['windows'])}")
+    print(f"all-gather at 1M (bench, 1 rank, packed, capacity 16): "
+          f"{b['gap_from_one_device']:.3e} m from one device after 2 steps, "
+          f"ms/step by chunk {[round(m, 3) for m in b['chunk_ms']]}, median "
+          f"{b['ms_per_step']:.3f} (one-device packed {packed}), peak "
+          f"{b['peak_mib']:.0f} MiB")
+    print(f"wave at scale {WAVE_SCALE} ({c['n']} particles, 3-D, float32, "
+          f"{WAVE_STEPS} steps): one device (plane-padded) "
+          f"{c['one_device_ms']:.3f} ms/step, windows "
+          f"{json.dumps(c['one_device_windows'])}; halo at 1 rank (not "
+          f"padded) {c['halo_ms']:.3f} ms/step, caps {c['hcfg']}, windows "
+          f"{json.dumps(c['halo_windows'])} (window_overflow: the longest), "
+          f"rebuilds {c['rebuilds']}, overflow {c['overflow']}, float32 gap "
+          f"{c['float32_gap_from_one_device']:.3e} m; kernels 1 and 2 warm "
+          f"on the padded frame "
+          + json.dumps({k: round(v, 4) for k, v in
+                        c["one_device_kernel_ms"].items()})
+          + ", on the halo frame (held against their plain versions) "
+          + json.dumps([{k: r[k] for k in ("ms", "cold_l2_ms", "plain_ms",
+                                           "max_abs_err")}
+                        for r in c["halo_kernels"]]))
+    d = shared_card_phase()
+    print(f"two ranks sharing the card (gloo-host; wave at {SHARED_SCALE}, "
+          f"{d['n']} particles, float64, {SHARED_STEPS} steps): max |pos| "
+          f"{d['pos_gap']:.3e} m, |vel| {d['vel_gap']:.3e} from one device "
+          f"(bars rtol 1e-10 / 1e-8), structure bit-equal on both ranks, "
+          f"overflow 0, caps {d['hcfg']}; {d['step_ms']:.2f} ms a step on "
+          f"rank 0 (host clock), of which the exchange {d['exchange_ms']:.2f} "
+          f"({d['exchanges']:.1f} collectives a step); spawn to results "
+          f"{d['spawn_s']:.1f} s")
+    e = multichip_cli_phase(tmp)
+    print(f"mesh cli (gate, float64, {MULTI_CLI_STEPS} steps): --mesh 1 "
+          f"--mode halo {e['halo']['gap']:.3e} m from one device (bar 1e-9), "
+          f"--mode allgather {e['allgather']['gap']:.3e} (bar 1e-12); seconds "
+          + json.dumps({k: round(v['seconds'], 1) for k, v in e.items()
+                        if isinstance(v, dict)})
+          + f"; --mesh 2 on one card: exit code {e['mesh2_exit_code']}, no "
+          f".prof")
+    print(f"multi-device phases: {time.time() - t0:.1f} s")
+    return dict(halo_1m=a, allgather_1m=b, wave=c, shared_card=d, cli=e,
+                rows=res["rows"])
 
 
 # ---------------------------------------------------------------------------
@@ -2511,6 +3019,10 @@ def main() -> int:
             t0 = time.time()
             run_cli_path(tmp, backend, CLI_ROWS_STEPS)
             print(f"cli path (bench, {backend}): {time.time() - t0:.1f} s")
+        torch.cuda.empty_cache()
+        multi = run_multi_device(tmp, paths)
+        paths["multi_device"] = {k: v for k, v in multi.items()
+                                 if k != "rows"}
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     probe_row = time_microbench()
@@ -2534,6 +3046,11 @@ def main() -> int:
             row[scene]["launches"] = launches[(scene, name)]
             if name.endswith("_sweep") and scene in scene_cli:
                 row[scene]["launches_cli_path"] = scene_cli[scene][name]
+    # kernels 1 and 2 on a halo frame (the 1M bench at one rank): the
+    # halo path's launches beside them
+    for halo_row in multi["rows"]:
+        row = next(r for r in rows["bench"] if r["name"] == halo_row["name"])
+        row["halo"] = {k: v for k, v in halo_row.items() if k != "name"}
     rows = rows["bench"] + [probe_row]
 
     print(json.dumps({"paths": paths}))

@@ -11,8 +11,10 @@ row-major ``pallas`` (a fresh frame every step; also taken by frames of
 and divergence-guarded chunk; phase 1, phase 2 and the virial of each
 backend as hand-written CUDA kernels under ``csrc/``; the output-time
 diagnostics; the file formats, the generator and the command line
-(``python -m particlemethod_fsi_tpu_torch.cli``); the bench scene; and the
-packed-bf16 throughput probe (``tools/bf16_microbench.py``).  Entry points
+(``python -m particlemethod_fsi_tpu_torch.cli``); the bench scene; the
+multi-device all-gather and 1-D slab halo modes over ``torch.distributed``
+(``parallel/``, ``--mesh``); and the packed-bf16 throughput probe
+(``tools/bf16_microbench.py``).  Entry points
 run on the GPU unless the caller passes ``device="cpu"`` (``--device cpu`` on
 the command line).
 """

@@ -182,3 +182,39 @@ def checkpoint_state_from_numpy(d: dict, *, dtype: torch.dtype,
     return state_from_numpy(
         {k: d[k] for k in ("prop", "pos", "pos0", "vel", "wall_center", "time")},
         dtype=dtype, device=device)
+
+
+_REGION_FIELDS = ("prop", "pos", "pos0", "vel", "oid")
+_REPLICATED_FIELDS = ("s_pos", "s_vel", "wall_center", "splits", "time")
+
+
+def halo_state_from_numpy(d: dict, rank: int, size: int, *,
+                          dtype: torch.dtype, device="cpu"):
+    """The fields of a JAX ``HaloState`` of a 1-axis mesh of ``size``
+    devices, as numpy arrays (``{k: np.asarray(getattr(state, k))}``) ->
+    rank ``rank``'s port ``HaloState``: its block of the region rows and the
+    replicated rest (``splits_y`` is dropped: one row of domain bounds on a
+    1-axis mesh)."""
+    from particlemethod_fsi_tpu_torch.parallel.halo import HaloState
+
+    cap = np.asarray(d["prop"]).shape[0] // size
+    blk = slice(rank * cap, (rank + 1) * cap)
+    ints = {"prop", "oid"}
+    return HaloState(
+        **{k: _as(np.asarray(d[k])[blk], torch.int32 if k in ints else dtype,
+                  device) for k in _REGION_FIELDS},
+        **{k: _as(d[k], dtype, device) for k in _REPLICATED_FIELDS})
+
+
+def halo_state_to_numpy(states, y_bounds) -> dict:
+    """Every rank's port ``HaloState``, in rank order -> the fields of the
+    JAX ``HaloState`` of a 1-axis mesh as numpy arrays (region rows
+    concatenated; ``splits_y`` one ``[lo, hi]`` row per rank from
+    ``y_bounds``, the domain's y bounds)."""
+    out = {k: np.concatenate([getattr(s, k).cpu().numpy() for s in states])
+           for k in _REGION_FIELDS}
+    out.update({k: getattr(states[0], k).cpu().numpy()
+                for k in _REPLICATED_FIELDS})
+    out["splits_y"] = np.tile(np.asarray(y_bounds, np.float64),
+                              (len(states), 1))
+    return out

@@ -66,6 +66,27 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.fsiio_append_scalars.argtypes = [cp, cp, i64, dp]
 
 
+def _compile(cmd: list, out_dir: Path) -> Path:
+    """Compile the IO runtime with ``cmd`` into ``out_dir``: into a file
+    of this process's own, then moved in by rename, so that processes that
+    build at once (ranks of a multi-device run) write no file together and
+    a reader sees a whole library or none."""
+    out_dir.mkdir(parents=True, exist_ok=True)
+    tmp = out_dir / f"{LIB_NAME}.tmp{os.getpid()}"
+    try:
+        run = subprocess.run([*cmd, "-o", str(tmp), str(SOURCE)],
+                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                             text=True, timeout=300)
+        if run.returncode != 0:
+            raise RuntimeError(
+                f"building {SOURCE.name} with {cmd[0]} failed:\n{run.stdout}")
+        lib_path = out_dir / LIB_NAME
+        os.replace(tmp, lib_path)
+        return lib_path
+    finally:
+        tmp.unlink(missing_ok=True)
+
+
 def ensure_built() -> Optional[ctypes.CDLL]:
     """The IO library, built first if this source has not been built yet;
     ``None`` only where no C++ compiler exists.  A failed build raises."""
@@ -83,15 +104,7 @@ def ensure_built() -> Optional[ctypes.CDLL]:
         if cmd is None:
             _searched = True
             return None
-        out_dir.mkdir(parents=True, exist_ok=True)
-        tmp = out_dir / f"{LIB_NAME}.tmp{os.getpid()}"
-        run = subprocess.run([*cmd, "-o", str(tmp), str(SOURCE)],
-                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                             text=True, timeout=300)
-        if run.returncode != 0:
-            raise RuntimeError(
-                f"building {SOURCE.name} with {cmd[0]} failed:\n{run.stdout}")
-        os.replace(tmp, lib_path)
+        _compile(cmd, out_dir)
     lib = ctypes.CDLL(str(lib_path))
     _declare(lib)
     _lib = lib

@@ -23,6 +23,7 @@ import os
 import re
 import shutil
 import subprocess
+import tempfile
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -63,33 +64,44 @@ def _source_hash(files, flags) -> str:
 
 
 def _build(sources, out_dir: Path, flags) -> Path:
+    """Compile and link into ``out_dir``.  Objects, log and library are
+    written in a directory of this process's own, and the library and the
+    log then move into ``out_dir`` by rename: several processes that find
+    no library (ranks of a multi-device run) may build at once without
+    writing one file together, and a reader sees a whole library or none."""
     nvcc = _find_nvcc()
     out_dir.mkdir(parents=True, exist_ok=True)
-    procs = []
-    for src in sources:
-        obj = out_dir / (src.stem + ".o")
-        cmd = [nvcc, *NVCC_FLAGS, *flags, "-c", str(src), "-o", str(obj)]
-        procs.append((src, obj, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-    log, failed = [], []
-    for src, obj, proc in procs:
-        out, _ = proc.communicate()
-        log.append(f"== {src.name}\n{out}")
-        if proc.returncode != 0:
-            failed.append(src.name)
-    (out_dir / "build.log").write_text("\n".join(log))
-    if failed:
-        raise RuntimeError(
-            f"nvcc failed on {', '.join(failed)}:\n" + "\n".join(log))
-    tmp = out_dir / (LIB_NAME + f".tmp{os.getpid()}")
-    link = subprocess.run(
-        [nvcc, "-shared", "-o", str(tmp), *[str(o) for _, o, _ in procs]],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    if link.returncode != 0:
-        raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
-    lib = out_dir / LIB_NAME
-    os.replace(tmp, lib)
-    return lib
+    work = Path(tempfile.mkdtemp(prefix=f"obj{os.getpid()}.", dir=out_dir))
+    try:
+        procs = []
+        for src in sources:
+            obj = work / (src.stem + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, *flags, "-c", str(src), "-o", str(obj)]
+            procs.append((src, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        log, failed = [], []
+        for src, obj, proc in procs:
+            out, _ = proc.communicate()
+            log.append(f"== {src.name}\n{out}")
+            if proc.returncode != 0:
+                failed.append(src.name)
+        if failed:
+            raise RuntimeError(
+                f"nvcc failed on {', '.join(failed)}:\n" + "\n".join(log))
+        (work / "build.log").write_text("\n".join(log))
+        link = subprocess.run(
+            [nvcc, "-shared", "-o", str(work / LIB_NAME),
+             *[str(o) for _, o, _ in procs]],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
+        os.replace(work / "build.log", out_dir / "build.log")
+        lib = out_dir / LIB_NAME
+        os.replace(work / LIB_NAME, lib)
+        return lib
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
 
 def _declare(lib: ctypes.CDLL) -> None:

@@ -138,11 +138,14 @@ def receivers_of(frame: SortedFrame, start: int = 0,
         ids=torch.arange(start, start + count, device=frame.pos.device))
 
 
-def receiver_blocks(n: int, grid: CellGrid, cap: int) -> list:
-    """``(start, count)`` of each receiver block of an ``n``-row frame: at
-    most :data:`EDGES_PER_BLOCK` edges a block."""
+def receiver_blocks(n: int, grid: CellGrid, cap: int, start: int = 0,
+                    count: Optional[int] = None) -> list:
+    """``(start, count)`` of each receiver block of the rows ``[start,
+    start + count)`` of an ``n``-row frame (all rows by default): at most
+    :data:`EDGES_PER_BLOCK` edges a block."""
     step = max(1, EDGES_PER_BLOCK // (len(grid.offsets) * cap))
-    return [(s, min(step, n - s)) for s in range(0, n, step)]
+    end = n if count is None else start + count
+    return [(s, min(step, end - s)) for s in range(start, end, step)]
 
 
 def _separations(frame: SortedFrame, rv: ReceiverView, grid: CellGrid, idx):
@@ -198,15 +201,22 @@ def candidates(frame: SortedFrame, rv: ReceiverView, grid: CellGrid,
     return idx.view(r, width), ok.view(r, width)
 
 
-def frame_views(frame: SortedFrame, grid: CellGrid, cap: int) -> list:
-    """Every receiver block of the frame (:func:`receiver_blocks`) as a view
-    with its kept candidates, all padded to one width (the widest block's),
-    so that each receiver's sums are taken over the same columns however
-    the frame is split: blocks give, bit for bit, what one block gives."""
-    views = [receivers_of(frame, s, c)
-             for s, c in receiver_blocks(frame.pos.shape[0], grid, cap)]
+def frame_views(frame: SortedFrame, grid: CellGrid, cap: int, *,
+                start: int = 0, count: Optional[int] = None,
+                agree=None) -> list:
+    """Every receiver block of the frame's rows ``[start, start + count)``
+    (all rows by default; :func:`receiver_blocks`) as a view with its kept
+    candidates, all padded to one width (the widest block's), so that each
+    receiver's sums are taken over the same columns however the frame is
+    split: blocks give, bit for bit, what one block gives.  ``agree`` maps
+    that width to the one to pad to (a maximum over the ranks that split the
+    receivers between them, so that they pad as one device does)."""
+    views = [receivers_of(frame, s, c) for s, c in receiver_blocks(
+        frame.pos.shape[0], grid, cap, start, count)]
     found = [candidates(frame, rv, grid, cap) for rv in views]
-    width = max(idx.shape[1] for idx, _ in found)
+    width = max((idx.shape[1] for idx, _ in found), default=0)
+    if agree is not None:
+        width = agree(width)
     pad = [(torch.nn.functional.pad(idx, (0, width - idx.shape[1])),
             torch.nn.functional.pad(ok, (0, width - ok.shape[1])))
            for idx, ok in found]

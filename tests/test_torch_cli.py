@@ -246,9 +246,13 @@ def test_without_a_device_flag_and_without_a_gpu_nothing_is_written(gate):
         pcli.main(argv + ["--device", "cuda"])
     assert os.listdir(out) == []
     # flags of paths that are not ported are refused, not run some other
-    # way
-    with pytest.raises(SystemExit):
-        pcli.main(argv + ["--device", "cpu", "--mesh", "4"])
+    # way (--mesh-shape: the 2-axis rectangles); --mesh with more ranks
+    # than devices exits 1
+    with pytest.raises(SystemExit, match="--mesh-shape"):
+        pcli.main(argv + ["--device", "cpu", "--mesh-shape", "2x2"])
+    assert os.listdir(out) == []
+    assert pcli.main(argv + ["--device", "cpu", "--mesh", "4"]) == 1
+    assert not [f for f in os.listdir(out) if f.endswith(".prof")]
 
 
 def test_bar_profile_matches_the_jax_command(tmp_path):

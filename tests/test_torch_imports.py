@@ -1,7 +1,8 @@
 """The PyTorch port stands alone: it imports and runs with ``jax``, ``flax``
 and the JAX package made unimportable, its sources name none of them, its
-kernel modules import without a compiler or a card, and without
-``device="cpu"`` it raises on a machine with no GPU."""
+kernel modules import without a compiler or a card, a rank it spawns imports
+none of them either, and without ``device="cpu"`` it raises on a machine
+with no GPU."""
 
 import os
 import re
@@ -117,8 +118,9 @@ def test_command_line_runs_with_jax_unimportable(tmp_path):
                      "utils.checkpoint", "generator", "convert",
                      "ops.windows", "ops.windows_t", "ops.ghosts",
                      "ops.edge_math", "ops.packed_engine", "ops.neighbors",
-                     "models.turek", "models.cases",
-                     "tools.bf16_microbench"):
+                     "models.turek", "models.cases", "models.wave",
+                     "parallel.comm", "parallel.launch", "parallel.sharding",
+                     "parallel.halo", "tools.bf16_microbench"):
             assert port.__name__ + "." + want in names, want
         from particlemethod_fsi_tpu_torch import cli
         from particlemethod_fsi_tpu_torch.io import write_data_file, write_grid_file
@@ -147,6 +149,32 @@ def test_command_line_runs_with_jax_unimportable(tmp_path):
     """)
     assert r.returncode == 0, r.stderr[-3000:]
     assert "CLI_OK" in r.stdout
+
+
+def test_a_spawned_rank_imports_neither_jax_nor_the_jax_package():
+    """Two gloo ranks started from a process with ``jax``, ``flax`` and the
+    JAX package blocked run a halo and an all-gather step; each rank (a
+    fresh interpreter, with no block of its own) reports the top-level
+    modules it imported."""
+    r = _run("""
+        from particlemethod_fsi_tpu_torch.models import bench_config, bench_grid
+        from particlemethod_fsi_tpu_torch.parallel import launch
+        if __name__ == "__main__":
+            cfg = bench_config(dtype="float64", pallas_block=32)
+            job = dict(cfg=cfg, grid=bench_grid(12), script=[("run", 1)])
+            ranks = launch.spawn(
+                launch.run_jobs, 2,
+                [dict(job, mode="halo"), dict(job, mode="allgather")],
+                transport="gloo", timeout=100, threads=1)
+            for r in ranks:
+                bad = {"jax", "jaxlib", "flax", "particlemethod_fsi_tpu"}
+                assert not bad & set(r["modules"]), r["modules"]
+                assert "torch" in r["modules"]
+                assert r["jobs"][0][0]["engine"] == "pallas_t"
+            print("RANKS_OK")
+    """)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert "RANKS_OK" in r.stdout
 
 
 def test_command_line_without_a_gpu_exits_and_writes_nothing(tmp_path):
