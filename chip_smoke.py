@@ -94,6 +94,15 @@ run on its first fault:
    ``.prof`` and ``.vtk`` files with virial pressure, log and metrics
    written, read back and checked; launch counts of the backend's kernels;
    seconds of the writers and readers;
+6b. multi-device over ``torch.distributed``, one process a rank: (a)-(c)
+   the halo and the all-gather at 1M and the 1.1M wave on one NCCL rank,
+   (d) two ``gloo-host`` ranks sharing the card, (e) ``--mesh 1`` and
+   ``--mesh 2`` on the gate case; (f) the 1M bench on a 2x2 mesh of
+   rectangles, four ``gloo-host`` ranks (ms/step, sections, collectives,
+   launches; kernels 1 and 2 on rank 0's y-extended frame against their
+   plain versions, under ``halo2d`` in rows 1-2 of the ``kernels`` line),
+   (g) the 2x2 wave and Turek channel in float64 against one device, (h)
+   ``--mesh-shape 1x1``, ``2x2`` and ``4`` on the gate case;
 7. the probe: float32 and bf16 element throughput of kernel 7 (the slope
    between two trip counts), one launch of 512 trips timed alone, the trip
    loop's machine instructions per element-trip, the SM clock, and the
@@ -2127,16 +2136,22 @@ def halo_frame_rows(sim, runner, state) -> tuple:
     """Kernels 1 and 2 in float32 on one halo frame of ``runner`` (the
     frame a rebuilding step builds from ``state``: own rows, the two x
     ghost strips in the grid's ghost layer, the structure rows), against
-    their plain versions at the main path's bars, timed warm and cold, with
-    the roofline bound of that frame; and the frame's window lengths."""
+    their plain versions (:func:`frame_rows`)."""
+    frame, win = runner.frame(state)
+    return frame_rows(sim, runner.frame_grid, frame, win)
+
+
+def frame_rows(sim, grid, frame, win) -> tuple:
+    """Kernels 1 and 2 in float32 on a halo frame over ``grid`` (its
+    windows ``win``), against their plain versions at the main path's bars,
+    timed warm and cold, with the roofline bound of that frame; and the
+    frame's window lengths."""
     import torch
     from particlemethod_fsi_tpu_torch.ops import windows as pw
     from particlemethod_fsi_tpu_torch.ops import windows_t as pwt
     from particlemethod_fsi_tpu_torch.ops.packed_engine import SortedFrame
 
-    grid, ks, wcfg, tables = (runner.frame_grid, sim.kernels, sim._pcfg,
-                              sim.tables)
-    frame, win = runner.frame(state)
+    ks, wcfg, tables = sim.kernels, sim._pcfg, sim.tables
     frame64 = SortedFrame(key=frame.key, pos=frame.pos.double(),
                           vel=frame.vel.double(), prop=frame.prop,
                           orig=frame.orig)
@@ -2431,19 +2446,16 @@ def shared_card_phase() -> dict:
                 rebuilds=run["rebuilds"], spawn_s=wall_s)
 
 
-def multichip_cli_phase(tmp: str) -> dict:
-    """(e) The command line on the gate case (``cases/fsi_gate``, the grid
-    of ``gate.boid`` through the port's generator, 6,724 particles),
-    float64, one output interval of 20 steps: ``--mesh 1`` in the halo and
-    the all-gather mode against one device (pallas_t for the halo, packed
-    for the all-gather, whose engine it is), within 1e-9 and 1e-12 m on
-    the ``.prof``; ``--mesh 2`` on the one card returns 1 with the JAX
-    command's message and writes no ``.prof``."""
+def gate_cli(tmp: str):
+    """The gate case (``cases/fsi_gate``, the grid of ``gate.boid`` through
+    the port's generator, 6,724 particles) written for the command line
+    with one output interval of ``MULTI_CLI_STEPS`` steps; returns
+    ``run(tag, *flags) -> (exit code, output directory, seconds)``, a
+    float64 run of ``cli.main`` in process for that interval."""
     import re
 
     from particlemethod_fsi_tpu_torch import cli
     from particlemethod_fsi_tpu_torch.generator import generate_case
-    from particlemethod_fsi_tpu_torch.io.grid_file import read_grid_file
 
     here = os.path.dirname(os.path.abspath(__file__))
     d = os.path.join(tmp, "mesh-cli")
@@ -2470,6 +2482,23 @@ def multichip_cli_phase(tmp: str) -> dict:
                        *flags])
         return rc, out, time.time() - t0
 
+    return run
+
+
+def _last_prof(out: str):
+    from particlemethod_fsi_tpu_torch.io.grid_file import read_grid_file
+
+    return read_grid_file(os.path.join(out, f"g{MULTI_CLI_STEPS:03d}.prof"))
+
+
+def multichip_cli_phase(run) -> tuple:
+    """(e) The command line on the gate case (:func:`gate_cli`), float64,
+    one output interval of 20 steps: ``--mesh 1`` in the halo and the
+    all-gather mode against one device (pallas_t for the halo, packed for
+    the all-gather, whose engine it is), within 1e-9 and 1e-12 m on the
+    ``.prof``; ``--mesh 2`` on the one card returns 1 with the JAX
+    command's message and writes no ``.prof``.  Returns the numbers and
+    the one-device pallas_t ``.prof``."""
     res = {}
     profs = {}
     for tag, flags in (("one-pallas_t", ()), ("one-packed", ("--backend",
@@ -2480,8 +2509,7 @@ def multichip_cli_phase(tmp: str) -> dict:
         rc, out, secs = run(tag, *flags)
         if rc != 0:
             fail(f"mesh cli ({tag}): exit code {rc}")
-        profs[tag] = read_grid_file(os.path.join(
-            out, f"g{MULTI_CLI_STEPS:03d}.prof"))
+        profs[tag] = _last_prof(out)
         res[tag] = dict(seconds=secs)
         log = open(os.path.join(out, "g.log")).read()
         if tag in ("halo", "allgather") and (
@@ -2504,11 +2532,266 @@ def multichip_cli_phase(tmp: str) -> dict:
         fail(f"mesh cli (--mesh 2 on one card): exit code {rc}, log "
              f"{log[-500:]!r}")
     res["mesh2_exit_code"] = rc
+    return res, profs["one-pallas_t"]
+
+
+def mesh_shape_cli_phase(run, one) -> dict:
+    """(h) ``--mesh-shape`` on the gate case (:func:`gate_cli`): ``1x1``
+    (one NCCL rank, the halo on pallas_t) against one device's ``.prof``
+    ``one`` within 1e-9 m; ``2x2`` on the one card and the malformed ``4``
+    each exit 1 with the JAX command's message and write no ``.prof``."""
+    res = {}
+    rc, out, secs = run("shape-1x1", "--mesh-shape", "1x1")
+    log = open(os.path.join(out, "g.log")).read()
+    if rc != 0 or ("multi-chip: mode=halo mesh=1x1 devices platform=cuda"
+                   not in log or "engine=pallas_t" not in log):
+        fail(f"mesh-shape cli (1x1): exit code {rc}, log {log[-1500:]!r}")
+    got = _last_prof(out)
+    gap = float(np.abs(got.position - one.position).max())
+    if got.n != 6724 or not gap <= 1e-9:
+        fail(f"mesh-shape cli (1x1): {got.n} particles, {gap:.3e} m from "
+             f"one device")
+    res["1x1"] = dict(gap=gap, seconds=secs)
+    for tag, flags, message in (
+            ("2x2", ("--mesh-shape", "2x2"),
+             "ERROR: mesh of 4 devices but only 1 visible"),
+            ("4", ("--mesh-shape", "4"),
+             "ERROR: --mesh-shape wants NXxNY (e.g. 4x2), got '4'")):
+        rc, out, _ = run(f"shape-{tag}", *flags)
+        log = open(os.path.join(out, "g.log")).read()
+        if (rc != 1 or message not in log
+                or any(f.endswith(".prof") for f in os.listdir(out))):
+            fail(f"mesh-shape cli ({tag} on one card): exit code {rc}, log "
+                 f"{log[-500:]!r}")
+        res[f"{tag}_exit_code"] = rc
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phases (f)-(g): the halo over a 2x2 mesh of rectangles, four ranks
+# sharing the card (gloo-host)
+# ---------------------------------------------------------------------------
+
+HALO2D_SHAPE = (2, 2)
+HALO2D_WARMUP = 10  # steps before the timed chunk of the 1M 2x2 path
+HALO2D_STEPS = 20  # the timed chunk
+HALO2D_WAVE_SCALE = 0.2  # models.wave: 130,734 particles, 3-D
+HALO2D_TUREK_L0 = 5e-3  # models.turek: the 44k channel, x and y wrap
+HALO2D_PARITY_STEPS = 10
+
+
+def _halo2d_planes(sim):
+    """Equal-count x planes and per-column y planes over the 2x2 mesh (the
+    command line's), and the halo config sized from them."""
+    from particlemethod_fsi_tpu_torch.parallel import halo
+
+    nx, ny = HALO2D_SHAPE
+    valid = sim.state0.prop >= 0
+    splits = halo.compute_splits(sim, nx, sim.state0.pos, valid)
+    splits_y = halo.compute_splits_y(sim, nx, ny, sim.state0.pos, valid,
+                                     splits_x=splits)
+    hcfg = halo.default_halo_config(sim, HALO2D_SHAPE, splits=splits,
+                                    splits_y=splits_y)
+    return splits, splits_y, hcfg
+
+
+def halo2d_rank(comm) -> dict:
+    """(f) One rank of the 2x2 mesh: the bench scene at ``N_SIDE`` in
+    float32 on pallas_t (margin 0.5) at :func:`_halo2d_planes`, a warm-up
+    of ``HALO2D_WARMUP`` steps, then ``HALO2D_STEPS`` timed (host clock
+    around a chunk ending in a sync) with the window kernels' counts set to
+    0 just before and read just after, the sections (CUDA events),
+    collectives and their host seconds, the rank's torch threads and the
+    host's 1-minute load; rank 0 also returns the frame and
+    windows a rebuilding step builds from the end state."""
+    import torch
+    from particlemethod_fsi_tpu_torch.models import build_case
+    from particlemethod_fsi_tpu_torch.ops import windows as pw
+    from particlemethod_fsi_tpu_torch.parallel import halo
+    from particlemethod_fsi_tpu_torch.parallel.sharding import make_mesh_grid
+
+    comm = make_mesh_grid(comm, *HALO2D_SHAPE)
+    t0 = time.time()
+    sim = build_case(N_SIDE, device=comm.device)
+    splits, splits_y, hcfg = _halo2d_planes(sim)
+    runner = halo.make_halo_step(sim, comm, hcfg)
+    if runner.engine != "pallas_t" or not runner.use_c8:
+        raise RuntimeError(f"2x2 halo: local engine {runner.engine}, C8 "
+                           f"{runner.use_c8}")
+    state = halo.partition_state(sim, comm, runner.hcfg, splits=splits,
+                                 splits_y=splits_y)
+    occupancy = int((state.prop >= 0).sum())
+    torch.cuda.synchronize()
+    setup_s = time.time() - t0
+    state, over = runner.run_chunk(state, HALO2D_WARMUP)
+    rebuilds = runner.last_chunk_rebuilds
+    pw.reset_launch_counts()
+    sim.profile_events = []
+    calls, secs = comm.calls, comm.seconds
+    torch.cuda.synchronize()
+    t0 = time.time()
+    state, o = runner.run_chunk(state, HALO2D_STEPS)
+    torch.cuda.synchronize()
+    ms = (time.time() - t0) * 1e3 / HALO2D_STEPS
+    load = os.getloadavg()[0]
+    counts = dict(pw.launch_counts)
+    events, sim.profile_events = sim.profile_events, None
+    out = dict(
+        rank=comm.rank, coords=comm.coords, hcfg=tuple(runner.hcfg),
+        frame_rows=runner.n_rows, occupancy=occupancy, setup_s=setup_s,
+        ms_per_step=ms, overflow=max(over, o), launches=counts,
+        threads=torch.get_num_threads(), load=load,
+        rebuilds=rebuilds, timed_rebuilds=runner.last_chunk_rebuilds,
+        collectives=(comm.calls - calls) / HALO2D_STEPS,
+        collective_ms=(comm.seconds - secs) * 1e3 / HALO2D_STEPS,
+        breakdown=section_breakdown(events, HALO2D_STEPS),
+        finite=bool(torch.isfinite(state.pos).all()),
+        splits_y=state.splits_y.cpu().numpy())
+    frame, win = runner.frame(state)
+    if comm.rank == 0:
+        out["frame"] = {k: getattr(frame, k).cpu().numpy()
+                        for k in ("key", "pos", "vel", "prop", "orig")}
+        out["windows"] = [w.cpu().numpy() for w in win]
+    return out
+
+
+def halo2d_path_1m() -> tuple:
+    """(f) The bench scene on the 2x2 mesh, four ranks (:func:`halo2d_rank`);
+    then, with no rank left on the card, kernels 1 and 2 on rank 0's
+    y-extended frame held against their plain versions and timed warm and
+    cold beside their bound (:func:`frame_rows`).  Fails where a rank's
+    overflow is not 0, its positions are not finite, the ranks' caps
+    differ, or a window kernel launched other than once a step of the timed
+    chunk.  Returns the numbers and rows 1-2's ``halo2d`` entries."""
+    import torch
+    from particlemethod_fsi_tpu_torch.models import build_case
+    from particlemethod_fsi_tpu_torch.ops.packed_engine import SortedFrame
+    from particlemethod_fsi_tpu_torch.parallel import halo, launch
+
+    nx, ny = HALO2D_SHAPE
+    t0 = time.time()
+    ranks = launch.spawn(halo2d_rank, nx * ny, transport="gloo-host",
+                         timeout=600)
+    spawn_s = time.time() - t0
+    steps = HALO2D_STEPS
+    for r in ranks:
+        tag = f"2x2 halo at n_side {N_SIDE}, rank {r['rank']} {r['coords']}"
+        if r["overflow"] or not r["finite"]:
+            fail(f"{tag}: overflow {r['overflow']}, finite {r['finite']}")
+        if r["hcfg"] != ranks[0]["hcfg"]:
+            fail(f"{tag}: caps {r['hcfg']} against rank 0's "
+                 f"{ranks[0]['hcfg']}")
+        if not np.array_equal(r["splits_y"], ranks[0]["splits_y"]):
+            fail(f"{tag}: the y planes differ from rank 0's")
+        if not 1 <= r["rebuilds"] + r["timed_rebuilds"] < HALO2D_WARMUP + steps:
+            fail(f"{tag}: {r['rebuilds']} + {r['timed_rebuilds']} rebuilds")
+        want = dict.fromkeys(r["launches"], 0)
+        want.update(phase1_sweep=steps, phase2_sweep=steps)
+        if r["launches"] != want:
+            fail(f"{tag}: launch counts {r['launches']} in {steps} steps")
+    r0 = ranks[0]
+    res = dict(
+        hcfg=r0["hcfg"], splits_y=r0["splits_y"].tolist(),
+        frame_rows=[r["frame_rows"] for r in ranks],
+        occupancy=[r["occupancy"] for r in ranks],
+        ms_per_step=[r["ms_per_step"] for r in ranks],
+        collectives=r0["collectives"],
+        collective_ms=[r["collective_ms"] for r in ranks],
+        rebuilds=[r["rebuilds"] + r["timed_rebuilds"] for r in ranks],
+        launches=r0["launches"], breakdown=r0["breakdown"],
+        threads=r0["threads"], load=r0["load"],
+        setup_s=max(r["setup_s"] for r in ranks), spawn_s=spawn_s)
+    sim = build_case(N_SIDE, device="cuda")
+    grid = halo._extended_grid(sim.cell_grid, True)
+    frame = SortedFrame(**{k: torch.as_tensor(v).cuda()
+                           for k, v in r0["frame"].items()})
+    win = tuple(torch.as_tensor(w).cuda() for w in r0["windows"])
+    rows, windows = frame_rows(sim, grid, frame, win)
+    for row in rows:
+        row["launches"] = r0["launches"][row["name"]]
+        row["frame_rows"] = windows["rows"]
+    res["windows"] = windows
+    del sim, frame, win
+    torch.cuda.empty_cache()
+    return res, rows
+
+
+def halo2d_parity_phase() -> dict:
+    """(g) Float64 parity of the 2x2 halo with one device on the card: the
+    wave at ``HALO2D_WAVE_SCALE`` (3-D) and the Turek channel at
+    ``HALO2D_TUREK_L0``
+    (x and y wrap: on a 2-axis mesh the y wrap rides the y ring's ghost
+    layer and the window sweep stays, where 1-D slabs take the packed
+    engine), ``HALO2D_PARITY_STEPS`` steps each at :func:`_halo2d_planes`,
+    four ranks in one spawn; held at the CPU halo bars
+    (:func:`hold_at_halo_bars`), the structure and the y planes bit-equal
+    on every rank, overflow 0, the engine pallas_t."""
+    import types
+
+    import torch
+    from particlemethod_fsi_tpu_torch.models.turek import (
+        turek_config, turek_grid)
+    from particlemethod_fsi_tpu_torch.parallel import launch
+    from particlemethod_fsi_tpu_torch.solver import Simulation
+
+    steps = HALO2D_PARITY_STEPS
+    cases = {"wave": wave_case(HALO2D_WAVE_SCALE, dtype="float64"),
+             "turek": (turek_config(HALO2D_TUREK_L0, dtype="float64"),
+                       turek_grid(HALO2D_TUREK_L0))}
+    jobs, refs = [], {}
+    for name, (cfg, grid) in cases.items():
+        sim = Simulation(cfg, grid, device="cuda")
+        splits, splits_y, hcfg = _halo2d_planes(sim)
+        t0 = time.time()
+        ref = sim.run_chunk(sim.state0, steps)
+        torch.cuda.synchronize()
+        refs[name] = (sim, ref, tuple(hcfg), time.time() - t0)
+        jobs.append(dict(mode="halo", mesh_shape=HALO2D_SHAPE, cfg=cfg,
+                         grid=grid, hcfg=tuple(hcfg), splits=splits,
+                         splits_y=splits_y,
+                         script=[("run", steps), ("gather",)]))
+    t0 = time.time()
+    ranks = launch.spawn(launch.run_jobs, 4, jobs, transport="gloo-host",
+                         timeout=600)
+    spawn_s = time.time() - t0
+    res = dict(spawn_s=spawn_s)
+    for i, name in enumerate(cases):
+        sim, ref, hcfg, one_s = refs[name]
+        (setup, run, gathered) = ranks[0]["jobs"][i]
+        if setup["engine"] != "pallas_t" or run["overflow"]:
+            fail(f"2x2 parity ({name}): engine {setup['engine']}, overflow "
+                 f"{run['overflow']}")
+        for r in ranks[1:]:
+            other = r["jobs"][i][2]
+            if not (np.array_equal(other["s_pos"], gathered["s_pos"])
+                    and np.array_equal(other["splits_y"],
+                                       gathered["splits_y"])):
+                fail(f"2x2 parity ({name}): the structure or the y planes "
+                     "differ between ranks")
+        g = gathered["state"]
+        if not np.array_equal(np.sort(g["oid"]), np.arange(sim.n)):
+            fail(f"2x2 parity ({name}): particles lost or doubled")
+        slot = dict(prop=np.full(sim.n_pad, -1, np.int32),
+                    pos=np.zeros((sim.n_pad, 3)), vel=np.zeros((sim.n_pad, 3)))
+        for k in slot:
+            slot[k][g["oid"]] = g[k]
+        got = types.SimpleNamespace(**{k: torch.as_tensor(v).to(sim.device)
+                                       for k, v in slot.items()})
+        pos_gap, vel_gap = hold_at_halo_bars(f"2x2 parity ({name}, float64)",
+                                             got, ref, sim.n)
+        res[name] = dict(n=sim.n, hcfg=hcfg, pos_gap=pos_gap,
+                         vel_gap=vel_gap, engine=setup["engine"],
+                         rebuilds=run["rebuilds"],
+                         one_device_rebuilds=sim.last_chunk_rebuilds,
+                         step_ms=run["seconds"] * 1e3 / steps,
+                         exchange_ms=run["comm_seconds"] * 1e3 / steps,
+                         exchanges=run["comm_calls"] / steps,
+                         one_device_s=one_s)
     return res
 
 
 def run_multi_device(tmp: str, paths: dict) -> dict:
-    """Phases (a)-(e); prints a line each and returns the numbers."""
+    """Phases (a)-(h); prints a line each and returns the numbers."""
     import torch
     from particlemethod_fsi_tpu_torch.parallel import launch
 
@@ -2564,7 +2847,8 @@ def run_multi_device(tmp: str, paths: dict) -> dict:
           f"rank 0 (host clock), of which the exchange {d['exchange_ms']:.2f} "
           f"({d['exchanges']:.1f} collectives a step); spawn to results "
           f"{d['spawn_s']:.1f} s")
-    e = multichip_cli_phase(tmp)
+    gate_run = gate_cli(tmp)
+    e, one_prof = multichip_cli_phase(gate_run)
     print(f"mesh cli (gate, float64, {MULTI_CLI_STEPS} steps): --mesh 1 "
           f"--mode halo {e['halo']['gap']:.3e} m from one device (bar 1e-9), "
           f"--mode allgather {e['allgather']['gap']:.3e} (bar 1e-12); seconds "
@@ -2572,9 +2856,54 @@ def run_multi_device(tmp: str, paths: dict) -> dict:
                         if isinstance(v, dict)})
           + f"; --mesh 2 on one card: exit code {e['mesh2_exit_code']}, no "
           f".prof")
+    t1 = time.time()
+    f, rows2d = halo2d_path_1m()
+    f["seconds"] = time.time() - t1
+    print(f"halo 2x2 at 1M (bench, 4 ranks sharing the card, gloo-host, "
+          f"pallas_t, float32, {HALO2D_WARMUP} + {HALO2D_STEPS} steps): caps "
+          f"{f['hcfg']}, frame rows {f['frame_rows']}, occupancy "
+          f"{f['occupancy']}, y planes {json.dumps(f['splits_y'])}; ms/step "
+          f"by rank (host clock) {[round(m, 2) for m in f['ms_per_step']]}, "
+          f"of which collectives {[round(m, 2) for m in f['collective_ms']]}"
+          f" ({f['collectives']:.1f} a step); rebuilds {f['rebuilds']}, "
+          f"overflow 0, launches {json.dumps(f['launches'])}; host: "
+          f"{os.cpu_count()} cores, {f['threads']} torch threads a rank, "
+          f"1-min load {f['load']:.1f} after the timed chunk; set-up "
+          f"{f['setup_s']:.1f} s, spawn to results {f['spawn_s']:.1f} s, "
+          f"phase {f['seconds']:.1f} s")
+    print("halo 2x2 at 1M, rank 0's ms/step by section (CUDA events): "
+          + json.dumps({k: round(v, 4) for k, v in f["breakdown"].items()})
+          + f"; its y-extended frame's windows {json.dumps(f['windows'])}; "
+          "kernels 1 and 2 on it alone (held against their plain versions): "
+          + json.dumps([{k: r[k] for k in ("name", "ms", "cold_l2_ms",
+                                           "plain_ms", "bound_ms",
+                                           "max_abs_err")} for r in rows2d]))
+    t1 = time.time()
+    g = halo2d_parity_phase()
+    g["seconds"] = time.time() - t1
+    for name in ("wave", "turek"):
+        r = g[name]
+        print(f"halo 2x2 parity ({name}, {r['n']} particles, float64, "
+              f"{HALO2D_PARITY_STEPS} steps, 4 gloo-host ranks, engine "
+              f"{r['engine']}): max |pos| {r['pos_gap']:.3e} m, |vel| "
+              f"{r['vel_gap']:.3e} m/s from one device on the card (bars "
+              f"rtol 1e-10 / 1e-8), caps {r['hcfg']}, rebuilds "
+              f"{r['rebuilds']} ({r['one_device_rebuilds']} on one device); "
+              f"{r['step_ms']:.2f} ms a step on rank 0 (host clock), of which "
+              f"the exchange {r['exchange_ms']:.2f} ({r['exchanges']:.1f} "
+              f"collectives a step)")
+    print(f"halo 2x2 parity phase: {g['seconds']:.1f} s (spawn to results "
+          f"{g['spawn_s']:.1f} s)")
+    h = mesh_shape_cli_phase(gate_run, one_prof)
+    print(f"mesh-shape cli (gate, float64, {MULTI_CLI_STEPS} steps): "
+          f"--mesh-shape 1x1 {h['1x1']['gap']:.3e} m from one device (bar "
+          f"1e-9) in {h['1x1']['seconds']:.1f} s; --mesh-shape 2x2 on one "
+          f"card: exit code {h['2x2_exit_code']}; --mesh-shape 4: exit code "
+          f"{h['4_exit_code']}; no .prof")
     print(f"multi-device phases: {time.time() - t0:.1f} s")
     return dict(halo_1m=a, allgather_1m=b, wave=c, shared_card=d, cli=e,
-                rows=res["rows"])
+                halo2d_1m=f, halo2d_parity=g, mesh_shape_cli=h,
+                rows=res["rows"], rows2d=rows2d)
 
 
 # ---------------------------------------------------------------------------
@@ -3022,7 +3351,7 @@ def main() -> int:
         torch.cuda.empty_cache()
         multi = run_multi_device(tmp, paths)
         paths["multi_device"] = {k: v for k, v in multi.items()
-                                 if k != "rows"}
+                                 if k not in ("rows", "rows2d")}
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     probe_row = time_microbench()
@@ -3048,9 +3377,12 @@ def main() -> int:
                 row[scene]["launches_cli_path"] = scene_cli[scene][name]
     # kernels 1 and 2 on a halo frame (the 1M bench at one rank): the
     # halo path's launches beside them
-    for halo_row in multi["rows"]:
-        row = next(r for r in rows["bench"] if r["name"] == halo_row["name"])
-        row["halo"] = {k: v for k, v in halo_row.items() if k != "name"}
+    for key, halo_rows in (("halo", multi["rows"]),
+                           ("halo2d", multi["rows2d"])):
+        for halo_row in halo_rows:
+            row = next(r for r in rows["bench"]
+                       if r["name"] == halo_row["name"])
+            row[key] = {k: v for k, v in halo_row.items() if k != "name"}
     rows = rows["bench"] + [probe_row]
 
     print(json.dumps({"paths": paths}))

@@ -28,11 +28,13 @@ Where it differs from the JAX command, and why:
 * ``--mesh N`` runs N ranks, one process and one device a rank, over
   ``torch.distributed`` (NCCL on the card, one card a rank; gloo on the CPU,
   where ``--host-devices N`` allows N ranks, as it makes N virtual devices
-  there); :func:`run_multichip` is a rank's loop, rank 0 writes every file
-  and the log, which has one line more than the JAX command's (``ranks: N
-  processes, transport ...``).  Too many ranks for the devices is logged
-  and exits 1 before the case is read (the JAX command reads it first).
-  ``--mesh-shape`` (2-axis rectangles) is refused by name: not ported yet.
+  there); ``--mesh-shape NXxNY`` (halo mode only) runs NX * NY ranks as the
+  rectangles of a 2-axis mesh.  :func:`run_multichip` is a rank's loop,
+  rank 0 writes every file and the log, which has one line more than the
+  JAX command's (``ranks: N processes, transport ...``).  A malformed
+  ``--mesh-shape``, one outside the halo mode, or too many ranks for the
+  devices is logged with the JAX command's message and exits 1 before the
+  case is read (the JAX command reads it first).
 * The periodic ghost plan is kept up at every chunk boundary, as there
   (capacity overflow warned of and reset, ``refresh_ghosts``); besides, the
   step itself rebuilds the plan where an axis starts to wrap inside a chunk,
@@ -128,8 +130,8 @@ def build_parser():
                    help="run multi-device over N ranks (one process and one "
                         "device each)")
     p.add_argument("--mesh-shape", default=None, metavar="NXxNY",
-                   help="halo mode over 2-axis rectangles: not ported yet "
-                        "(refused)")
+                   help="halo mode over NX x NY rectangles (a 2-axis mesh "
+                        "of NX*NY ranks), e.g. 4x2")
     p.add_argument("--mode", default="halo", choices=["allgather", "halo"],
                    help="multi-device strategy (with --mesh)")
     p.add_argument("--halo-margin", type=float, default=None,
@@ -237,11 +239,7 @@ def run(args) -> int:
         device = resolve_device(args.device)
     except RuntimeError as e:
         raise SystemExit(f"fsi-torch: {e}")
-    if args.mesh_shape:
-        raise SystemExit("fsi-torch: --mesh-shape (the halo mode over 2-axis "
-                         "rectangles) is not ported yet; --mesh N runs 1-D "
-                         "slabs")
-    if args.mesh:
+    if args.mesh or args.mesh_shape:
         return launch_multichip(args, device)
     log = RunLog(args.log, args.metrics)
     cfg, grid, sim, state = _setup(args, device, log)
@@ -437,35 +435,58 @@ class _QuietLog:
         pass
 
 
+def _refuse(args, fmt, *values) -> int:
+    """Log the JAX command's error and return its exit code, 1."""
+    log = RunLog(args.log, args.metrics)
+    log.printf(fmt, *values)
+    log.close()
+    return 1
+
+
 def launch_multichip(args, device) -> int:
-    """``--mesh N``: N ranks, each a process with one device (NCCL on the
-    card, one card a rank; gloo on the CPU, as many ranks as
-    ``--host-devices`` allows), each running :func:`run_multichip`; returns
-    rank 0's exit code.  Too many ranks for the devices logs the JAX
-    command's error and returns 1 before any rank starts."""
+    """``--mesh N`` or ``--mesh-shape NXxNY``: N (NX * NY) ranks, each a
+    process with one device (NCCL on the card, one card a rank; gloo on the
+    CPU, as many ranks as ``--host-devices`` allows), each running
+    :func:`run_multichip`; returns rank 0's exit code.  A malformed
+    ``--mesh-shape``, one outside the halo mode, or too many ranks for the
+    devices logs the JAX command's error and returns 1 before any rank
+    starts."""
     from particlemethod_fsi_tpu_torch.parallel import launch
 
+    if args.mesh_shape:
+        try:
+            nx, ny = (int(v) for v in args.mesh_shape.lower().split("x"))
+        except ValueError:
+            return _refuse(args, "ERROR: --mesh-shape wants NXxNY (e.g. "
+                           "4x2), got %r\n", args.mesh_shape)
+        if args.mode != "halo":
+            return _refuse(args, "ERROR: --mesh-shape is halo-mode only\n")
+    else:
+        nx, ny = args.mesh, 1
+    ndev = nx * ny
     if device.type == "cuda":
         avail, transport = torch.cuda.device_count(), "nccl"
     else:
         avail, transport = (args.host_devices or 1), "gloo"
-    if avail < args.mesh:
-        log = RunLog(args.log, args.metrics)
-        log.printf("ERROR: mesh of %d devices but only %d visible "
-                   "(use --host-devices for virtual CPU testing)\n",
-                   args.mesh, avail)
-        log.close()
-        return 1
-    threads = (max(1, torch.get_num_threads() // args.mesh)
+    if avail < ndev:
+        return _refuse(args, "ERROR: mesh of %d devices but only %d visible "
+                       "(use --host-devices for virtual CPU testing)\n",
+                       ndev, avail)
+    threads = (max(1, torch.get_num_threads() // ndev)
                if device.type == "cpu" else None)
-    rcs = launch.spawn(_multichip_rank, args.mesh, vars(args),
+    rcs = launch.spawn(_multichip_rank, ndev, vars(args), (nx, ny),
                        transport=transport, timeout=None, threads=threads)
     return rcs[0]
 
 
-def _multichip_rank(comm, argv: dict) -> int:
-    """Rank entry of ``--mesh``: the set-up, then :func:`run_multichip`;
-    rank 0 keeps the log."""
+def _multichip_rank(comm, argv: dict, shape) -> int:
+    """Rank entry of ``--mesh`` / ``--mesh-shape``: the ranks as the mesh
+    ``shape`` (a 2-axis mesh where ``ny > 1``, as the JAX command makes
+    one), the set-up, then :func:`run_multichip`; rank 0 keeps the log."""
+    from particlemethod_fsi_tpu_torch.parallel.sharding import make_mesh_grid
+
+    if shape[1] > 1:
+        comm = make_mesh_grid(comm, *shape)
     args = argparse.Namespace(**argv)
     log = RunLog(args.log, args.metrics) if comm.rank == 0 else _QuietLog()
     cfg, grid, sim, state = _setup(args, comm.device, log)
@@ -476,8 +497,9 @@ def run_multichip(args, comm, cfg, grid, sim, state0, log) -> int:
     """One rank's multi-device loop (``run_multichip`` of the JAX command):
     the same output contract as the one-device loop.  ``allgather`` shards
     the receivers and all-gathers the senders (every rank holds the whole
-    frame; the packed engine); ``halo`` is the 1-D slab decomposition with
-    migration and ghost strips over the ring, equal-count rebalancing and
+    frame; the packed engine); ``halo`` is the domain decomposition with
+    migration and ghost strips over rings of ranks (x slabs, or x * y
+    rectangles on a 2-axis mesh), equal-count rebalancing and
     occupancy-adaptive caps at output cadence by default.  Both restore a
     slot-ordered state at output boundaries, on every rank, so the watchdog
     decides alike everywhere; rank 0 writes ``.prof`` and ``.vtk`` (its
@@ -489,7 +511,8 @@ def run_multichip(args, comm, cfg, grid, sim, state0, log) -> int:
     writer = comm.rank == 0
     log.printf("multi-chip: mode=%s mesh=%dx%d devices platform=%s\n",
                args.mode, nx, ny, comm.device.type)
-    log.printf("ranks: %d processes, transport %s\n", nx, comm.transport)
+    log.printf("ranks: %d processes, transport %s\n", comm.size,
+               comm.transport)
     speed_limit = 2.0 * max(sound_speed_bound(cfg), 1.0)
 
     if args.mode == "allgather":
@@ -518,17 +541,20 @@ def run_multichip(args, comm, cfg, grid, sim, state0, log) -> int:
             else (1.08 if halo_adapt else 1.2)
         if args.no_rebalance:
             splits = ha.uniform_splits(sim, nx, 0)
+            splits_y = ha.uniform_splits(sim, ny, 1)
         else:
-            splits = ha.compute_splits(sim, nx, state0.pos,
-                                       state0.prop >= 0)
+            valid0 = state0.prop >= 0
+            splits = ha.compute_splits(sim, nx, state0.pos, valid0)
+            splits_y = ha.compute_splits_y(sim, nx, ny, state0.pos, valid0,
+                                           splits_x=splits)
         hcfg = ha.default_halo_config(
-            sim, nx, splits=splits, state=state0,
+            sim, (nx, ny), splits=splits, splits_y=splits_y, state=state0,
             occupancy_margin=halo_margin, npad_floor=not halo_adapt)
         if halo_adapt:
             # quantized caps: adaptive re-sizing recurs on few frame shapes
             hcfg = ha.quantize_config(hcfg)
         mstate = ha.partition_state(sim, comm, hcfg, splits=splits,
-                                    state=state0)
+                                    splits_y=splits_y, state=state0)
         runner = ha.make_halo_step(sim, comm, hcfg)
         hcfg = runner.hcfg
         log.printf("halo: capacity=%d migration_cap=%d halo_cap=%d "
@@ -546,7 +572,7 @@ def run_multichip(args, comm, cfg, grid, sim, state0, log) -> int:
         def to_slot(ms):
             return ha.to_slot_state(sim, comm, ms)
 
-        def rebuild_step(new_hcfg, splits):
+        def rebuild_step(new_hcfg, splits, splits_y):
             # resize: a step for the new caps and the gathered state
             # re-partitioned under the given planes
             nonlocal mstate, hcfg, runner
@@ -554,7 +580,7 @@ def run_multichip(args, comm, cfg, grid, sim, state0, log) -> int:
             runner = ha.make_halo_step(sim, comm, new_hcfg)
             hcfg = runner.hcfg
             mstate = ha.partition_state(sim, comm, hcfg, splits=splits,
-                                        state=rows)
+                                        splits_y=splits_y, state=rows)
 
         def regrow(reason):
             # self-heal: grow the saturated buffers, refresh the capacity
@@ -562,7 +588,8 @@ def run_multichip(args, comm, cfg, grid, sim, state0, log) -> int:
             nonlocal regrow_budget
             regrow_budget -= 1
             old = hcfg
-            grown, splits = ha.regrow_config(sim, comm, hcfg, mstate)
+            grown, splits, splits_y = ha.regrow_config(sim, comm, hcfg,
+                                                       mstate)
             if halo_adapt:
                 grown = ha.quantize_config(grown)
             log.printf(
@@ -573,7 +600,7 @@ def run_multichip(args, comm, cfg, grid, sim, state0, log) -> int:
                 old.halo_cap, grown.halo_cap, old.halo_cap_y,
                 grown.halo_cap_y, old.capacity, grown.capacity,
                 regrow_budget)
-            rebuild_step(grown, splits)
+            rebuild_step(grown, splits, splits_y)
 
     dt = cfg.dt
     time = float(grid.time)
@@ -613,7 +640,7 @@ def run_multichip(args, comm, cfg, grid, sim, state0, log) -> int:
             if halo_adapt:
                 # occupancy-adaptive caps: grow on drift, shrink once
                 # rebalancing has spread the particles out again
-                new_hcfg, spl, changed = ha.adapt_config(
+                new_hcfg, spl, spl_y, changed = ha.adapt_config(
                     sim, comm, hcfg, mstate, occupancy_margin=halo_margin)
                 if changed:
                     log.printf(
@@ -623,10 +650,10 @@ def run_multichip(args, comm, cfg, grid, sim, state0, log) -> int:
                         hcfg.halo_cap, new_hcfg.halo_cap, hcfg.halo_cap_y,
                         new_hcfg.halo_cap_y, hcfg.capacity,
                         new_hcfg.capacity, time)
-                    rebuild_step(new_hcfg, spl)
+                    rebuild_step(new_hcfg, spl, spl_y)
                 else:
                     mstate = ha.rebalance(sim, comm, hcfg, mstate,
-                                          splits=spl)
+                                          splits=spl, splits_y=spl_y)
             else:
                 mstate = ha.rebalance(sim, comm, hcfg, mstate)
         if args.mode == "halo" and regrow_budget > 0:

@@ -185,15 +185,17 @@ def checkpoint_state_from_numpy(d: dict, *, dtype: torch.dtype,
 
 
 _REGION_FIELDS = ("prop", "pos", "pos0", "vel", "oid")
-_REPLICATED_FIELDS = ("s_pos", "s_vel", "wall_center", "splits", "time")
+_REPLICATED_FIELDS = ("s_pos", "s_vel", "wall_center", "splits", "splits_y",
+                      "time")
 
 
 def halo_state_from_numpy(d: dict, rank: int, size: int, *,
                           dtype: torch.dtype, device="cpu"):
-    """The fields of a JAX ``HaloState`` of a 1-axis mesh of ``size``
-    devices, as numpy arrays (``{k: np.asarray(getattr(state, k))}``) ->
-    rank ``rank``'s port ``HaloState``: its block of the region rows and the
-    replicated rest (``splits_y`` is dropped: one row of domain bounds on a
+    """The fields of a JAX ``HaloState`` of a mesh of ``size`` devices (1-
+    or 2-axis: block ``rank`` is the device ``ix * ny + iy``), as numpy
+    arrays (``{k: np.asarray(getattr(state, k))}``) -> rank ``rank``'s port
+    ``HaloState``: its block of the region rows and the replicated rest
+    (``splits_y`` ``[nx, ny+1]``, one row of domain y bounds a column on a
     1-axis mesh)."""
     from particlemethod_fsi_tpu_torch.parallel.halo import HaloState
 
@@ -206,15 +208,12 @@ def halo_state_from_numpy(d: dict, rank: int, size: int, *,
         **{k: _as(d[k], dtype, device) for k in _REPLICATED_FIELDS})
 
 
-def halo_state_to_numpy(states, y_bounds) -> dict:
+def halo_state_to_numpy(states) -> dict:
     """Every rank's port ``HaloState``, in rank order -> the fields of the
-    JAX ``HaloState`` of a 1-axis mesh as numpy arrays (region rows
-    concatenated; ``splits_y`` one ``[lo, hi]`` row per rank from
-    ``y_bounds``, the domain's y bounds)."""
+    JAX ``HaloState`` as numpy arrays (region rows concatenated, the
+    replicated fields from rank 0)."""
     out = {k: np.concatenate([getattr(s, k).cpu().numpy() for s in states])
            for k in _REGION_FIELDS}
     out.update({k: getattr(states[0], k).cpu().numpy()
                 for k in _REPLICATED_FIELDS})
-    out["splits_y"] = np.tile(np.asarray(y_bounds, np.float64),
-                              (len(states), 1))
     return out

@@ -3,19 +3,27 @@ process group.
 
 No module of the JAX package is its counterpart: there ``shard_map`` gives
 each shard ``jax.lax.axis_index``, tiled ``all_gather``, ``ppermute`` over
-the ring ``perm(+-1, n)`` (``parallel/halo.py:715-717``), ``pmax`` and
-``psum``.  Here each shard is a process with one device, and :class:`Comm`
-gives the same operations on that process's tensors:
+the ring ``perm(+-1, n)`` of a mesh axis (``parallel/halo.py:715-717``),
+``pmax`` and ``psum`` over every axis.  Here each shard is a process with
+one device, and :class:`Comm` gives the same operations on that process's
+tensors:
 
+* :attr:`Comm.shape` -- the mesh ``(nx, ny)`` of the ranks: ``(size, 1)``
+  for the 1-D ring, or a 2-axis grid (``sharding.make_mesh_grid``), where
+  rank ``r`` sits at ``(r // ny, r % ny)`` (the JAX mesh's row-major block
+  index ``ix * ny + iy``, ``halo.py:115-119``);
 * :meth:`Comm.all_gather` -- the tiled all-gather (ranks' rows in rank
   order);
-* :meth:`Comm.ring` -- one ``ppermute`` step of the ring: every rank sends
-  to ``rank + direction`` and receives from ``rank - direction`` (mod n).
-  At n = 1 the rank sends to itself, which is a local copy
-  (``batch_isend_irecv`` to a rank's own number raises); at n = 2 both
-  directions reach the one peer, and a call's one message each way keeps
-  the pairs matched;
-* :meth:`Comm.max` and :meth:`Comm.sum` -- ``pmax`` and ``psum``.
+* :meth:`Comm.ring` -- one ``ppermute`` step of the ring along a mesh
+  axis: every rank sends to the rank ``direction`` steps on along that
+  axis and receives from the rank ``direction`` steps back (mod the axis
+  size), the other coordinate fixed.  Along an axis of size 1 the rank
+  sends to itself, which is a local copy (``batch_isend_irecv`` to a rank's
+  own number raises); at size 2 both directions reach the one peer, and a
+  call's one message each way keeps the pairs matched.  The peers are
+  global ranks of the one process group: no sub-group is made;
+* :meth:`Comm.max` and :meth:`Comm.sum` -- ``pmax`` and ``psum`` over
+  every rank.
 
 Several tensors of one collective travel as one message: they are packed
 into one byte buffer (any dtypes; ``oid`` stays int32 end to end) and
@@ -69,23 +77,35 @@ def _unpack(buf: torch.Tensor, like: Sequence[torch.Tensor]) -> list:
 
 
 class Comm:
-    """One rank's view of the ring of ranks (a 1-D mesh of ``size``
-    devices).  ``seconds`` and ``calls`` add up the host time spent in the
-    collectives and their number (with ``nccl`` the host returns before the
-    device has finished, so there ``seconds`` counts enqueueing only)."""
+    """One rank's view of the mesh of ranks (``shape`` ``(nx, ny)``; a 1-D
+    ring of ``size`` devices unless given).  ``seconds`` and ``calls`` add
+    up the host time spent in the collectives and their number (with
+    ``nccl`` the host returns before the device has finished, so there
+    ``seconds`` counts enqueueing only)."""
 
     def __init__(self, rank: int, size: int, device: torch.device,
-                 transport: Optional[str], group=None):
+                 transport: Optional[str], group=None,
+                 shape: Optional[tuple] = None):
         if size > 1 and transport not in TRANSPORTS:
             raise ValueError(f"transport {transport!r}: not one of "
                              f"{TRANSPORTS}")
+        shape = (size, 1) if shape is None else tuple(int(v) for v in shape)
+        if len(shape) != 2 or shape[0] * shape[1] != size:
+            raise ValueError(f"mesh shape {shape} does not hold {size} "
+                             "ranks")
         self.rank = rank
         self.size = size
+        self.shape = shape
         self.device = torch.device(device)
         self.transport = transport
         self.group = group
         self.seconds = 0.0
         self.calls = 0
+
+    @property
+    def coords(self) -> tuple[int, int]:
+        """This rank's ``(ix, iy)`` on the mesh."""
+        return divmod(self.rank, self.shape[1])
 
     @classmethod
     def local(cls, device="cpu") -> "Comm":
@@ -128,18 +148,28 @@ class Comm:
                     for i in range(len(tensors))]
         return self._timed(go)
 
-    def ring(self, direction: int, *tensors: torch.Tensor) -> list:
-        """``ppermute`` over ``perm(direction, n)``: this rank's tensors go
-        to ``rank + direction`` and the tensors of ``rank - direction``
-        come back (same shapes on every rank)."""
-        if self.size == 1:
+    def _peer(self, axis: int, step: int) -> int:
+        """The global rank ``step`` places on along mesh axis ``axis``."""
+        ix, iy = self.coords
+        nx, ny = self.shape
+        if axis == 0:
+            return ((ix + step) % nx) * ny + iy
+        return ix * ny + (iy + step) % ny
+
+    def ring(self, direction: int, *tensors: torch.Tensor,
+             axis: int = 0) -> list:
+        """``ppermute`` over ``perm(direction, n)`` of mesh axis ``axis``
+        (0: x, 1: y): this rank's tensors go to the rank ``direction`` on
+        along the axis and those of the rank ``direction`` back come back
+        (same shapes on every rank)."""
+        if self.shape[axis] == 1:
             return [t.clone() for t in tensors]
 
         def go():
             buf = self._out(_pack(tensors))
             got = torch.empty_like(buf)
-            dst = (self.rank + direction) % self.size
-            src = (self.rank - direction) % self.size
+            dst = self._peer(axis, direction)
+            src = self._peer(axis, -direction)
             ops = [dist.P2POp(dist.isend, buf, dst, self.group),
                    dist.P2POp(dist.irecv, got, src, self.group)]
             for work in dist.batch_isend_irecv(ops):

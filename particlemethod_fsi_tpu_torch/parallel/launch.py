@@ -134,7 +134,10 @@ def spawn(fn, world: int, *args, transport: str,
 def _halo_job(comm, sim, job):
     from particlemethod_fsi_tpu_torch import convert
     from particlemethod_fsi_tpu_torch.parallel import halo as ha
+    from particlemethod_fsi_tpu_torch.parallel.sharding import make_mesh_grid
 
+    if job.get("mesh_shape") is not None:
+        comm = make_mesh_grid(comm, *job["mesh_shape"])
     hcfg = job.get("hcfg")
     if hcfg is not None:
         hcfg = ha.HaloConfig(*hcfg)
@@ -145,7 +148,8 @@ def _halo_job(comm, sim, job):
             device=sim.device)
     else:
         state = ha.partition_state(sim, comm, runner.hcfg,
-                                   splits=job.get("splits"))
+                                   splits=job.get("splits"),
+                                   splits_y=job.get("splits_y"))
     out = [dict(op="setup", engine=runner.engine, hcfg=tuple(runner.hcfg))]
     for op, *arg in job["script"]:
         rec = dict(op=op)
@@ -164,16 +168,19 @@ def _halo_job(comm, sim, job):
             state, over, done, ok = runner.run_chunk_guarded(state, arg[0])
             rec.update(overflow=over, done=done, ok=ok)
         elif op == "regrow":
-            grown, splits = ha.regrow_config(sim, comm, runner.hcfg, state)
+            grown, splits, splits_y = ha.regrow_config(sim, comm,
+                                                       runner.hcfg, state)
             rows = ha.gathered_rows(comm, state)
             runner = ha.make_halo_step(sim, comm, grown)
             state = ha.partition_state(sim, comm, runner.hcfg,
-                                       splits=splits, state=rows)
+                                       splits=splits, splits_y=splits_y,
+                                       state=rows)
             rec.update(hcfg=tuple(runner.hcfg))
         elif op == "gather":
             rec.update(state=ha.gather_state(sim, comm, state),
                        s_pos=state.s_pos.cpu().numpy(),
-                       splits=state.splits.cpu().numpy())
+                       splits=state.splits.cpu().numpy(),
+                       splits_y=state.splits_y.cpu().numpy())
         else:
             raise ValueError(f"halo job: unknown op {op!r}")
         if sim.device.type == "cuda":
@@ -207,11 +214,12 @@ def run_jobs(comm: Comm, jobs: list) -> dict:
     """Rank entry: each job is a dict with ``mode`` (``"halo"`` or
     ``"allgather"``), ``cfg`` and ``grid`` (the case; a Simulation is built
     on this rank's device), ``script`` (a list of ``(op, *args)``) and, for
-    the halo, optional ``hcfg`` (a tuple), ``splits`` or ``halo_state`` (a
-    JAX partition as numpy, see :mod:`convert`).  Halo ops: ``("step",
-    n)`` (``n`` fresh-frame steps), ``("run", n)``, ``("guarded", n)``,
-    ``("regrow",)``, ``("gather",)``; all-gather ops: ``("run", n)``,
-    ``("gather",)``.
+    the halo, optional ``mesh_shape`` (``(nx, ny)``: the ranks as a 2-axis
+    mesh, ``sharding.make_mesh_grid``), ``hcfg`` (a tuple), ``splits`` and
+    ``splits_y``, or ``halo_state`` (a JAX partition as numpy, see
+    :mod:`convert`).  Halo ops: ``("step", n)`` (``n`` fresh-frame steps),
+    ``("run", n)``, ``("guarded", n)``, ``("regrow",)``, ``("gather",)``;
+    all-gather ops: ``("run", n)``, ``("gather",)``.
     Returns ``{"jobs": [one list of records per job], "modules": [the
     top-level modules this rank imported]}``."""
     from particlemethod_fsi_tpu_torch.solver import Simulation

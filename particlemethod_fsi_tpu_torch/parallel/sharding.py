@@ -2,9 +2,8 @@
 of ranks.
 
 Counterpart of ``particlemethod_fsi_tpu/parallel/sharding.py``
-(``make_mesh``, ``shard_state``, ``make_sharded_step``,
-``make_sharded_runner``; ``make_mesh_grid`` belongs to the 2-axis halo mode,
-not ported yet).  Each rank holds a contiguous block of ``n_pad / ranks``
+(``make_mesh``, ``make_mesh_grid``, ``shard_state``, ``make_sharded_step``,
+``make_sharded_runner``; ``make_mesh_grid`` serves the 2-axis halo mode).  Each rank holds a contiguous block of ``n_pad / ranks``
 slots of every particle array; the wall state and the time are replicated.
 A step:
 
@@ -38,6 +37,23 @@ def make_mesh(comm: Comm) -> tuple[int]:
     """The 1-D mesh shape of the ranks (``make_mesh`` builds a ``("dp",)``
     device mesh there; here the ranks are the mesh)."""
     return (comm.size,)
+
+
+def make_mesh_grid(comm: Comm, nx: int, ny: int) -> Comm:
+    """The ranks as the 2-axis mesh of the ``nx`` x ``ny`` rectangle halo
+    (``parallel/halo.py``): rank ``ix * ny + iy`` owns rectangle ``(ix,
+    iy)`` and exchanges over a ring along each axis: a Comm of the same
+    ranks and process group, its counters at zero.  Raises as the JAX
+    ``make_mesh_grid`` does where the mesh needs more devices than there
+    are ranks; every rank holds a region, so a mesh of fewer raises too."""
+    if nx * ny > comm.size:
+        raise ValueError(f"mesh {nx}x{ny} needs {nx * ny} devices, "
+                         f"have {comm.size}")
+    if nx * ny < comm.size:
+        raise ValueError(f"mesh {nx}x{ny} holds {nx * ny} of {comm.size} "
+                         "ranks; every rank must own a region")
+    return Comm(comm.rank, comm.size, comm.device, comm.transport,
+                comm.group, (nx, ny))
 
 
 def _block(sim, comm: Comm) -> tuple[int, int]:

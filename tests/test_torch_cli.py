@@ -245,12 +245,12 @@ def test_without_a_device_flag_and_without_a_gpu_nothing_is_written(gate):
     with pytest.raises(SystemExit):
         pcli.main(argv + ["--device", "cuda"])
     assert os.listdir(out) == []
-    # flags of paths that are not ported are refused, not run some other
-    # way (--mesh-shape: the 2-axis rectangles); --mesh with more ranks
-    # than devices exits 1
-    with pytest.raises(SystemExit, match="--mesh-shape"):
-        pcli.main(argv + ["--device", "cpu", "--mesh-shape", "2x2"])
-    assert os.listdir(out) == []
+    # more ranks than devices exits 1 and writes no .prof, with --mesh and
+    # with --mesh-shape (the 2-axis rectangles: 2x2 is four ranks)
+    assert pcli.main(argv + ["--device", "cpu", "--mesh-shape", "2x2"]) == 1
+    assert "ERROR: mesh of 4 devices but only 1 visible" in (
+        out / "gate.log").read_text()
+    assert not [f for f in os.listdir(out) if f.endswith(".prof")]
     assert pcli.main(argv + ["--device", "cpu", "--mesh", "4"]) == 1
     assert not [f for f in os.listdir(out) if f.endswith(".prof")]
 

@@ -413,8 +413,7 @@ def test_config_splits_and_partition_layout_equal_jax(world):
     states = [halo.partition_state(psim, _fake_comm(r, world),
                                    halo.HaloConfig(*hcfg), splits=splits)
               for r in range(world)]
-    got = convert.halo_state_to_numpy(
-        states, (psim.domain_min[1], psim.domain_max[1]))
+    got = convert.halo_state_to_numpy(states)
     assert sorted(got) == sorted(want)
     for k in want:
         np.testing.assert_array_equal(got[k], want[k], err_msg=k)
@@ -451,7 +450,7 @@ def test_adapt_clamps_the_fresh_caps_before_comparing():
         jsim, mesh, jhalo.HaloConfig(*running), state, quantum=q)
     assert j_changed and j_new.halo_cap > j_new.capacity  # JAX: spurious
     prop, pos = np.asarray(state.prop), np.asarray(state.pos)
-    new, _, changed = halo.adapt_sizes(psim, 4, running, prop, pos,
+    new, _, _, changed = halo.adapt_sizes(psim, 4, running, prop, pos,
                                        quantum=q)
     assert not changed and new == running  # port: holds
 
@@ -466,14 +465,15 @@ def test_adapt_shrinks_an_inflated_migration_cap():
     prop, pos = np.asarray(state.prop), np.asarray(state.pos)
     j_fresh, _, _, _ = jhalo.adapt_config(
         jsim, mesh, jhalo.HaloConfig(q, q, q, 0), state, quantum=q)
-    fresh, _, _ = halo.adapt_sizes(psim, 1, halo.HaloConfig(q, q, q, 0),
+    fresh, _, _, _ = halo.adapt_sizes(psim, 1, halo.HaloConfig(q, q, q, 0),
                                    prop, pos, quantum=q)
     assert tuple(fresh) == tuple(j_fresh)  # no cap above the capacity here
     fat = fresh._replace(migration_cap=fresh.migration_cap + 4 * q)
     j_new, _, _, j_changed = jhalo.adapt_config(
         jsim, mesh, jhalo.HaloConfig(*fat), state, quantum=q)
     assert not j_changed and tuple(j_new) == tuple(fat)  # JAX: stays fat
-    new, _, changed = halo.adapt_sizes(psim, 1, fat, prop, pos, quantum=q)
+    new, _, _, changed = halo.adapt_sizes(psim, 1, fat, prop, pos,
+                                          quantum=q)
     assert changed and new == fresh  # port: shrinks back
 
 
@@ -490,9 +490,8 @@ def test_regrow_trigger_scales_with_the_margin():
     assert not halo.regrow_wanted(800, hcfg, 1.2)
     jsim, psim, mesh, state = _slab_state(4)
     prop, pos = np.asarray(state.prop), np.asarray(state.pos)
-    new, splits, _ = halo.adapt_sizes(psim, 4, halo.HaloConfig(128, 128,
-                                                                128, 0),
-                                      prop, pos, quantum=128)
+    new, splits, _, _ = halo.adapt_sizes(
+        psim, 4, halo.HaloConfig(128, 128, 128, 0), prop, pos, quantum=128)
     dest = np.clip(np.searchsorted(splits, pos[prop >= 0, 0], side="right")
                    - 1, 0, 3)
     fullest = int(np.bincount(dest, minlength=4).max())

@@ -177,6 +177,31 @@ def test_a_spawned_rank_imports_neither_jax_nor_the_jax_package():
     assert "RANKS_OK" in r.stdout
 
 
+def test_a_spawned_rank_of_a_2x2_mesh_imports_neither_jax_nor_the_jax_package():
+    """Four gloo ranks as a 2x2 mesh of rectangles, started from a process
+    with ``jax``, ``flax`` and the JAX package blocked, run a halo step on
+    the window sweep (x and y strips, both rings); each rank reports the
+    top-level modules it imported."""
+    r = _run("""
+        from particlemethod_fsi_tpu_torch.models import bench_config, bench_grid
+        from particlemethod_fsi_tpu_torch.parallel import launch
+        if __name__ == "__main__":
+            job = dict(mode="halo", mesh_shape=(2, 2),
+                       cfg=bench_config(dtype="float64", pallas_block=32),
+                       grid=bench_grid(12), script=[("run", 1)])
+            ranks = launch.spawn(launch.run_jobs, 4, [job],
+                                 transport="gloo", timeout=100, threads=1)
+            for r in ranks:
+                bad = {"jax", "jaxlib", "flax", "particlemethod_fsi_tpu"}
+                assert not bad & set(r["modules"]), r["modules"]
+                setup = r["jobs"][0][0]
+                assert setup["engine"] == "pallas_t" and setup["hcfg"][3] > 0
+            print("RANKS_OK")
+    """)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert "RANKS_OK" in r.stdout
+
+
 def test_command_line_without_a_gpu_exits_and_writes_nothing(tmp_path):
     r = _run(f"""
         import os, torch

@@ -1,5 +1,6 @@
 """PyTorch port vs JAX package: the command line's multi-device run
-(``--mesh N --mode {allgather,halo}``), float64 on the CPU.
+(``--mesh N --mode {allgather,halo}``, ``--mesh-shape NXxNY``), float64 on
+the CPU.
 
 The port's command runs as a subprocess, ``--device cpu --host-devices 4
 --mesh 4``: four gloo ranks, one process each, rank 0 writing every file
@@ -14,7 +15,9 @@ some 80 s of one worker, over the minute it may take.
 Tolerances are ``tests/test_multichip_cli.py``'s: the step-20 ``.prof``
 positions within atol 1e-12 (all-gather) and 1e-9 (halo, with and without
 rebalancing) of the port's one-device command and of the JAX command at
-``--mesh 4``.  The logs agree line by line (dates and seconds blanked; the
+``--mesh 4``, and at ``--mesh-shape 2x2`` (the halo over rectangles, four
+ranks; the JAX command on its virtual mesh).  The malformed, all-gather
+and too-large mesh shapes exit 1 with the JAX command's messages.  The logs agree line by line (dates and seconds blanked; the
 port's ``io writer`` and ``ranks`` lines aside)."""
 
 import os
@@ -134,8 +137,53 @@ def test_too_many_devices_returns_1_and_writes_no_prof(case):
     assert not [f for f in os.listdir(out) if f.endswith(".prof")]
 
 
+@pytest.mark.parametrize("mode", ["halo", "halo-no-rebalance"])
+def test_mesh_shape_2x2_matches_one_device_and_the_jax_command(
+        case, one_device, mode):
+    """``--mesh-shape 2x2``: four gloo ranks on rectangles (equal-count x
+    planes and per-column y planes, or equal width with
+    ``--no-rebalance``), against the port's one-device command and the JAX
+    command on its virtual mesh."""
+    flags, atol = MODES[mode]
+    flags = ["--backend", "packed", "--mesh-shape", "2x2", *flags]
+    got = _run_port(case, case / f"port2d-{mode}", "--host-devices", "4",
+                    *flags)
+    want = _run_jax(case, case / f"jax2d-{mode}", *flags)
+    assert got.n == want.n == mini_fsi().n
+    np.testing.assert_array_equal(got.prop, want.prop)
+    for ref in (one_device, want):
+        np.testing.assert_allclose(got.position, ref.position, rtol=0,
+                                   atol=atol)
+    assert float(np.abs(got.velocity).max()) > 1e-3  # the scene moved
+    log = (case / f"port2d-{mode}" / "run.log").read_text()
+    assert "multi-chip: mode=halo mesh=2x2 devices platform=cpu" in log
+    assert "ranks: 4 processes, transport gloo" in log
+    halo_line = next(line for line in log.splitlines()
+                     if line.startswith("halo: "))
+    assert int(re.search(r"halo_cap_y=(\d+)", halo_line).group(1)) > 0
+    assert (_log_lines(case / f"port2d-{mode}" / "run.log")
+            == _log_lines(case / f"jax2d-{mode}" / "run.log"))
+
+
 def test_mesh_shape_is_refused_by_name(case):
-    out = case / "shape"
-    with pytest.raises(SystemExit, match="--mesh-shape"):
-        pcli.main(_argv(case, out, "--device", "cpu", "--mesh-shape", "2x2"))
-    assert not os.listdir(out)
+    """The JAX command's three refusals of a mesh shape, each logged with
+    the JAX command's message and exit code 1, and before any rank starts,
+    with no ``.prof`` written: not ``NXxNY``, outside the halo mode, more
+    ranks than devices (the port given as many CPU ranks as the JAX
+    command's eight virtual devices)."""
+    for tag, flags, message in (
+            ("form", ["--mesh-shape", "4"],
+             "ERROR: --mesh-shape wants NXxNY (e.g. 4x2), got '4'"),
+            ("mode", ["--mesh-shape", "2x2", "--mode", "allgather"],
+             "ERROR: --mesh-shape is halo-mode only"),
+            ("devices", ["--mesh-shape", "4x4"],
+             "ERROR: mesh of 16 devices but only 8 visible")):
+        out = case / f"shape-{tag}"
+        assert pcli.main(_argv(case, out, "--device", "cpu",
+                               "--host-devices", "8", *flags)) == 1
+        assert message in (out / "run.log").read_text()
+        assert os.listdir(out) == ["run.log"]
+        jout = case / f"jax-shape-{tag}"
+        assert jcli.main(_argv(case, jout, *flags)) == 1
+        assert message in (jout / "run.log").read_text()
+        assert not [f for f in os.listdir(jout) if f.endswith(".prof")]
