@@ -58,6 +58,17 @@ run on its first fault:
    goldens run) against the reference binary's golden, the Rolling module
    (rocking walls; 500 steps on ``pallas_t``, 100 on ``pallas``) and the
    bar's tip after its first-mode excitation (100 steps) the same way;
+4b. the path users ship: ``tools/golden_acceptance`` on both backends in
+   float32 at the case scripts' C8 margins (0.5; the Turek channel 1.0),
+   every golden to its committed horizon (dam 1,000 steps, the bar's tip
+   460, gate 1,000, rolling1 100, rolling 1,000, hydro 1,000, Turek 500),
+   every barred row within its bar and the step kernels launched once a
+   step; meanwhile ``tools/full_cases``, the command line in subprocesses
+   (the four runs at once, sharing the card) for the full schedules of
+   the dam (10,000 steps), the gate (5,000), the bar as shipped (the
+   watchdog's exit code 2, its first line at t 0.044-0.050) and the bar's
+   stable run (3,000), each with its exit code, files and finite
+   positions, its table and ms/step;
 5. the step path of each backend on four full-size scenes, the coupled
    dam break on an elastic bar at ``n_side=1000`` (1,012,666 particles),
    the Turek channel at ``l0=1e-3`` (1,040,000 particles,
@@ -119,7 +130,6 @@ the last line ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import concurrent.futures
-import gzip
 import io
 import json
 import os
@@ -1236,11 +1246,9 @@ def check_turek_growth(backend: str) -> dict:
 
 
 def _golden(*parts):
-    here = os.path.dirname(os.path.abspath(__file__))
-    with gzip.open(os.path.join(here, "goldens", *parts), "rt") as f:
-        f.readline()
-        f.readline()
-        return np.loadtxt(f)
+    from particlemethod_fsi_tpu_torch.tools import golden_acceptance as ga
+
+    return ga.load_golden(os.path.join(ga.GOLD, *parts))[1]
 
 
 def _case_sim(tmp: str, case: str, name: str, gold: str, scene: str,
@@ -1248,18 +1256,13 @@ def _case_sim(tmp: str, case: str, name: str, gold: str, scene: str,
     """The ``.boid`` of ``cases/<case>`` through the port's generator (into
     ``tmp``), the golden's own ``.data``, float64 on the card."""
     from particlemethod_fsi_tpu_torch.config import NumericsConfig
-    from particlemethod_fsi_tpu_torch.generator import generate_case
-    from particlemethod_fsi_tpu_torch.solver import Simulation, load_case
+    from particlemethod_fsi_tpu_torch.tools.golden_acceptance import (
+        case_simulation)
 
     here = os.path.dirname(os.path.abspath(__file__))
-    if not os.path.exists(os.path.join(tmp, name + ".grid")):
-        shutil.copy(os.path.join(here, "cases", case, name + ".boid"), tmp)
-        generate_case(os.path.join(tmp, name))
-    cfg, grid = load_case(
-        os.path.join(here, "goldens", gold, name + ".data"),
-        os.path.join(tmp, name + ".grid"), scene=scene,
-        numerics=NumericsConfig(dtype="float64", backend=backend))
-    return Simulation(cfg, grid), grid
+    return case_simulation(
+        tmp, case, name, os.path.join(here, "goldens", gold, name + ".data"),
+        scene, NumericsConfig(dtype="float64", backend=backend))
 
 
 def check_rolling_golden(tmp: str, backend: str, steps: int):
@@ -1319,6 +1322,59 @@ def check_bar_golden(tmp: str, backend: str):
         fail(f"bar golden ({backend}): tip error {max(errs):.3e} m against "
              f"1 % of the peak {peak:.3e} m through step {step}")
     return sim.n, max(errs), peak
+
+
+def check_production_path(tmp: str) -> None:
+    """The path users ship, on the card: the golden acceptance
+    (``tools/golden_acceptance``: float32, the case scripts' C8 margins,
+    every golden to its committed horizon) on both window backends, every
+    barred row passing and each backend's step kernels launched once a step
+    (no virial); meanwhile the shipped cases for their full schedules
+    through the command line, each run a process of its own on the card
+    (``tools/full_cases``: dam, gate, the bar as shipped ending in the
+    watchdog's exit code 2, the bar's stable run), each with its exit
+    code, files and finite positions.  The acceptance and the four runs
+    share the card and the host, so their times are shared ones; each tool
+    run alone gives its own."""
+    from particlemethod_fsi_tpu_torch.ops import windows as pw
+    from particlemethod_fsi_tpu_torch.tools import full_cases
+    from particlemethod_fsi_tpu_torch.tools import golden_acceptance as ga
+
+    out = os.path.join(tmp, "full_cases")
+    t_runs = time.time()
+    with concurrent.futures.ThreadPoolExecutor(len(full_cases.RUNS)) as pool:
+        runs = [pool.submit(full_cases.run_case, name, out)
+                for name in full_cases.RUNS]
+        for backend in ("pallas_t", "pallas"):
+            t0 = time.time()
+            pw.reset_launch_counts()
+            rows, steps = ga.run_acceptance(backend, emit=lambda row: print(
+                f"  acceptance ({backend}): {ga.format_row(row)}",
+                flush=True))
+            if pw.launch_counts != expect_counts(backend, steps, 0):
+                fail(f"golden acceptance ({backend}): launch counts "
+                     f"{pw.launch_counts} in {steps} steps")
+            failed = [row.name for row in rows if not row.ok]
+            if failed:
+                fail(f"golden acceptance ({backend}): {', '.join(failed)} "
+                     f"past their bars")
+            barred = sum(row.bar is not None for row in rows)
+            counts = {k: v for k, v in pw.launch_counts.items() if v}
+            print(f"golden acceptance ({backend}; float32, C8 margin "
+                  f"{ga.MARGIN}, the Turek channel {ga.TUREK_MARGIN}; "
+                  f"{steps} steps): {barred} barred rows pass, "
+                  f"{len(rows) - barred} printed without a bar; launches "
+                  f"{json.dumps(counts)}; {time.time() - t0:.1f} s",
+                  flush=True)
+        results = [run.result() for run in runs]
+    for res in results:
+        print(res.report, flush=True)
+        if not res.ok:
+            fail(f"full case {res.name}: {'; '.join(res.problems)}")
+    shutil.rmtree(out, ignore_errors=True)
+    print(f"full cases ({', '.join(full_cases.RUNS)}; the runs at once, "
+          f"beside the acceptance): {time.time() - t_runs:.1f} s",
+          flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -1847,22 +1903,17 @@ def check_gate_golden(tmp: str, backend: str):
     Tolerance: positions within 2.0e-6 m, the bar of the CPU tests (the
     ``%e`` six-digit floor plus drift)."""
     from particlemethod_fsi_tpu_torch.config import NumericsConfig
-    from particlemethod_fsi_tpu_torch.generator import generate_case
     from particlemethod_fsi_tpu_torch.ops import windows as pw
-    from particlemethod_fsi_tpu_torch.solver import Simulation, load_case
     from particlemethod_fsi_tpu_torch.state import to_numpy
+    from particlemethod_fsi_tpu_torch.tools.golden_acceptance import (
+        case_simulation)
 
     here = os.path.dirname(os.path.abspath(__file__))
-    if not os.path.exists(os.path.join(tmp, "gate.grid")):
-        shutil.copy(os.path.join(here, "cases", "fsi_gate", "gate.boid"), tmp)
-        generate_case(os.path.join(tmp, "gate"))
-    cfg, grid = load_case(
-        os.path.join(here, "goldens", "gate", "gate.data"),
-        os.path.join(tmp, "gate.grid"), scene="dam",
-        numerics=NumericsConfig(
-            dtype="float64", backend=backend,
-            cell_capacity=12 if backend in ENGINES else None))
-    sim = Simulation(cfg, grid)
+    sim, _ = case_simulation(
+        tmp, "fsi_gate", "gate",
+        os.path.join(here, "goldens", "gate", "gate.data"), "dam",
+        NumericsConfig(dtype="float64", backend=backend,
+                       cell_capacity=12 if backend in ENGINES else None))
     pw.reset_launch_counts()
     state, done, ok = sim.run_chunk_guarded(sim.state0, 100)
     if (done, ok) != (100, True):
@@ -1871,11 +1922,7 @@ def check_gate_golden(tmp: str, backend: str):
     if pw.launch_counts != expect_counts(backend, 100, 0):
         fail(f"gate golden ({backend}): launch counts {pw.launch_counts}")
     out = to_numpy(state, sim.n)
-    with gzip.open(os.path.join(here, "goldens", "gate",
-                                "gate100.prof.gz"), "rt") as f:
-        f.readline()
-        f.readline()
-        gold = np.loadtxt(f)
+    gold = _golden("gate", "gate100.prof.gz")
     dp = float(np.abs(out["pos"][:, :2] - gold[:, 1:3]).max())
     if not dp < 2.0e-6:
         fail(f"gate golden ({backend}): position differs by {dp:.3e} m after "
@@ -3285,6 +3332,10 @@ def main() -> int:
               f"float64, 100 steps on the card): tip within {tip_err:.3e} m "
               f"of the reference binary's trajectory ({tip_err / peak:.3%} "
               f"of its peak {peak:.4e} m; bar 1 %)")
+        t0 = time.time()
+        check_production_path(tmp)
+        print(f"production path (golden acceptance on both backends, the "
+              f"full cases): {time.time() - t0:.1f} s", flush=True)
 
         # each full-size scene on each backend: the field-major backend runs
         # kernels 1-3, the row-major one kernels 4-6; each path is driven

@@ -120,7 +120,9 @@ def test_command_line_runs_with_jax_unimportable(tmp_path):
                      "ops.edge_math", "ops.packed_engine", "ops.neighbors",
                      "models.turek", "models.cases", "models.wave",
                      "parallel.comm", "parallel.launch", "parallel.sharding",
-                     "parallel.halo", "tools.bf16_microbench"):
+                     "parallel.halo", "tools.bf16_microbench",
+                     "tools.golden_acceptance", "tools.case_summary",
+                     "tools.full_cases"):
             assert port.__name__ + "." + want in names, want
         from particlemethod_fsi_tpu_torch import cli
         from particlemethod_fsi_tpu_torch.io import write_data_file, write_grid_file
