@@ -308,12 +308,16 @@ def substep_subset(sub_pos, sub_vel, solid: SolidStatic, domain_width,
 
 
 def run_substeps(pos, vel, solid: SolidStatic, domain_width, elastic_dt: float,
-                 substeps: int, *, double_position_update: bool):
+                 substeps: int, *, double_position_update: bool, spans=None):
     """Gather structure subset, run the substep loop, scatter back.  Returns
-    new ``pos`` / ``vel`` tensors; the inputs are left intact."""
+    new ``pos`` / ``vel`` tensors; the inputs are left intact.  ``spans``
+    (the caller's ``utils.trace.Spans``) gets each substep as a part of its
+    open section."""
     sub_pos = pos[solid.gather_idx]
     sub_vel = vel[solid.gather_idx]
     for _ in range(substeps):
+        if spans is not None:
+            spans.part("solid substep")
         sub_pos, sub_vel, _, _ = substep_subset(
             sub_pos, sub_vel, solid, domain_width, elastic_dt,
             double_position_update=double_position_update,

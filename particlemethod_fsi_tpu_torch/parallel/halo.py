@@ -675,8 +675,9 @@ class HaloStep:
     package): :meth:`step`, :meth:`run_chunk` and :meth:`run_chunk_guarded`
     over :class:`HaloState`; ``hcfg`` the caps as run (clamped), ``engine``
     the local engine (``"pallas_t"`` or ``"packed"``), ``rebuilds`` and
-    ``last_chunk_rebuilds`` the frame rebuilds.  Sections of a step are
-    marked with ``sim._mark`` (``sim.profile_events``)."""
+    ``last_chunk_rebuilds`` the frame rebuilds.  Chunks, steps and their
+    sections are spans of ``sim.spans`` (``utils/trace.py``): marks while
+    ``sim.profile_events`` is a list, ranges under the profiler."""
 
     def __init__(self, sim, comm: Comm, hcfg: Optional[HaloConfig] = None):
         self.sim, self.comm = sim, comm
@@ -884,7 +885,9 @@ class HaloStep:
         sy_col = st.splits_y[ix]  # this column's y planes
         dev = pos.device
         zero = torch.zeros((), dtype=pos.dtype, device=dev)
-        sim._mark("begin")
+        sp = sim.spans
+        sp.step()
+        sp.begin("read")
 
         # --- elementwise pre-steps ---------------------------------------
         if cfg.scene.velocity_profile == "turek_inlet":
@@ -917,7 +920,9 @@ class HaloStep:
         if probe and not sim._healthy(vals[-1]):
             return None
         rebuild = cache is None or vals[0] > sim._rebuild_thresh2
-        sim._mark("read")
+        sp.mark("read")
+
+        sp.begin("strips and migration")
 
         # --- migration (x, then y), compaction and fresh x strips ---------
         over = torch.zeros((), dtype=torch.int32, device=dev)
@@ -960,8 +965,9 @@ class HaloStep:
         if sim.has_structure:
             parts.append((self.s_prop, s_pos, s_vel))
         fprop, fpos, fvel = (torch.cat(c) for c in zip(*parts))
-        sim._mark("strips and migration")
+        sp.mark("strips and migration")
 
+        sp.begin("frame")
         # --- frame: fresh sort + windows, or the cached permutation -------
         if rebuild:
             if self.use_pallas:
@@ -983,7 +989,7 @@ class HaloStep:
             ref_own, ref_s = cache["ref_own"], cache["ref_s"]
         views = (None if self.use_pallas
                  else pk.frame_views(frame, sim.cell_grid, sim.cell_capacity))
-        sim._mark("frame")
+        sp.mark("frame", rebuilt=rebuild)
 
         return types.SimpleNamespace(
             prop=prop, pos=pos, pos0=pos0, vel=vel, oid=oid, s_pos=s_pos,
@@ -999,6 +1005,7 @@ class HaloStep:
         engine."""
         with torch.no_grad():
             x = self._exchange(state, None, False)
+        self.sim.spans.end()
         return x.frame, x.windows
 
     def _patch_ghosts(self, f1, names, inv, idx_lo, idx_hi, first, axis):
@@ -1029,10 +1036,13 @@ class HaloStep:
         prop, pos, vel, s_pos, s_vel = x.prop, x.pos, x.vel, x.s_pos, x.s_vel
         frame, windows, views, inv = x.frame, x.windows, x.views, x.inv
         zero = torch.zeros((), dtype=pos.dtype, device=pos.device)
+        sp = sim.spans
 
         # --- phase 1 everywhere; authoritative fields from the owners -----
+        sp.begin("phase1")
         f1 = dict(self._local_fields(frame, windows, views))
-        sim._mark("phase1")
+        sp.mark("phase1")
+        sp.begin("ghost fields")
         names = (("pressure_p", "pressure_a", "gravity_center")
                  if self.want_st else ("pressure_p",))
         # x ghosts first, so that the y strips forward their owners' fields
@@ -1059,12 +1069,14 @@ class HaloStep:
             f1["gravity_center"] = f1["gravity_center"].index_put(
                 (ss,), packed[:, 2:5])
             f1["mu"] = f1["mu"].index_put((ss,), self.s_mu)
-        sim._mark("ghost fields")
+        sp.mark("ghost fields")
 
+        sp.begin("phase2")
         force_s = self._local_forces(frame, windows, views, f1)
-        sim._mark("phase2")
+        sp.mark("phase2")
 
         # --- fluid/wall integration on own rows ---------------------------
+        sp.begin("integrate")
         force = force_s[inv[:self.cap]]
         seg = Segments(prop)
         mass = sim.tables.density[torch.clamp(prop, 0, 5).long()] * sim.volume
@@ -1075,10 +1087,11 @@ class HaloStep:
                                     torch.ones_like(mass))[:, None]
         vel = torch.where(fs[:, None], vel + accel * dt, vel)
         pos = torch.where(seg.fluid[:, None], pos + vel * dt, pos)
-        sim._mark("integrate")
+        sp.mark("integrate")
 
         # --- structure: replicated integration + elastic substeps ---------
         if sim.has_structure:
+            sp.begin("solid")
             s_valid = sim.solid.s_valid[:, None]
             s_force = comm.sum(torch.where(
                 s_own[:, None], force_s[ss], zero))
@@ -1087,11 +1100,12 @@ class HaloStep:
             s_vel = torch.where(
                 s_valid, s_vel + s_force / self.s_mass[:, None] * dt, s_vel)
             for _ in range(cfg.substeps):
+                sp.part("solid substep")
                 s_pos, s_vel, _, _ = sl.substep_subset(
                     s_pos, s_vel, sim.solid, sim._width_t, cfg.elastic_dt,
                     double_position_update=(
                         cfg.compat.double_substep_position_update))
-            sim._mark("solid")
+            sp.mark("solid")
 
         new = HaloState(prop=prop, pos=pos, pos0=x.pos0, vel=vel, oid=x.oid,
                         s_pos=s_pos, s_vel=s_vel, wall_center=x.wall_center,
@@ -1115,8 +1129,10 @@ class HaloStep:
     def step(self, state: HaloState):
         """One step with a fresh frame; ``(state, overflow)``, the overflow
         the largest over the ranks."""
+        self.sim.spans.chunk()
         with torch.no_grad():
             new, over, _, _ = self._step(state, None, False)
+            self.sim.spans.end()
             self.rebuilds += 1
             return new, int(self.comm.max(over.reshape(1)).item())
 
@@ -1138,6 +1154,7 @@ class HaloStep:
     def _run(self, state, n_steps, guarded):
         cache, done, healthy, rebuilds = None, 0, True, 0
         over = torch.zeros((), dtype=torch.int32, device=self.sim.device)
+        self.sim.spans.chunk()
         with torch.no_grad():
             while done < n_steps:
                 out = self._step(state, cache, guarded and done > 0)
@@ -1154,6 +1171,7 @@ class HaloStep:
             vals = self.comm.max(_finite_or_inf(torch.stack(reads))).tolist()
             if guarded and healthy:
                 healthy = self.sim._healthy(vals[1])
+        self.sim.spans.end()
         self.last_chunk_rebuilds = rebuilds
         self.rebuilds += rebuilds
         return state, int(vals[0]), done, healthy

@@ -74,6 +74,7 @@ from particlemethod_fsi_tpu_torch.ops.neighbors import (
     CellGrid, build_cell_grid, build_neighbor_list)
 from particlemethod_fsi_tpu_torch.ops.smoothing import KernelSet, build_kernels
 from particlemethod_fsi_tpu_torch.state import ParticleState, Segments
+from particlemethod_fsi_tpu_torch.utils.trace import Spans
 from particlemethod_fsi_tpu_torch.utils.watchdog import sound_speed_bound
 
 
@@ -266,10 +267,9 @@ class Simulation:
                                           device=self.device)
         self.rebuilds = 0  # frame rebuilds over every run_chunk so far
         self.last_chunk_rebuilds = 0
-        # set to a list to record ("name", torch.cuda.Event) marks at the
-        # section ends of every step and of every diagnostics call
-        # (chip_smoke.py's breakdowns)
-        self.profile_events: Optional[list] = None
+        # the section spans of every chunk, step and diagnostics call
+        # (utils/trace.py); profile_events switches their marks
+        self.spans = Spans(self.device)
         # host seconds of the last diagnostics() call: device work with its
         # copies to the host, and the numpy tensor assembly
         self.last_diagnostics_seconds: dict = {}
@@ -279,11 +279,18 @@ class Simulation:
         return torch.tensor([float(v) for v in values],
                             dtype=torch.float64).to(self.device, self.dtype)
 
-    def _mark(self, name: str) -> None:
-        if self.profile_events is not None:
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            self.profile_events.append((name, ev))
+    @property
+    def profile_events(self) -> Optional[list]:
+        """None, or the list that takes a ``("name", event)`` mark at each
+        section end of every step and diagnostics call (``utils/trace.py``;
+        chip_smoke.py's breakdowns, the benchmark's spans).  Setting a list
+        where there was None starts a new recording of the marked steps
+        (``utils.trace.last_recording``)."""
+        return self.spans.events
+
+    @profile_events.setter
+    def profile_events(self, value: Optional[list]) -> None:
+        self.spans.events = value
 
     @property
     def _frame_support(self) -> float:
@@ -352,23 +359,30 @@ class Simulation:
         when the plan looks fresh now: for a capacity overflow reported by
         ``state.ghost_overflow`` from inside the chunk (the strip may have
         shrunk back since, but pairs were dropped).  The candidate engines
-        have no plan: False."""
-        if not self._windowed:
-            return False
-        valid = state.prop >= 0
-        parts = [gh.valid_extremes(state.pos, ~valid).flatten()]
-        if self._ghosts is not None:
-            parts.append(gh.strip_counts(self._ghosts, self.cell_grid,
-                                         state.pos, valid).to(parts[0].dtype))
-        host = torch.cat(parts).tolist()
-        axes_now = gh.wrap_test(self.cell_grid, host[0:3], host[3:6],
-                                self._frame_support, self.cfg.two_dimensional)
-        if not force and not gh.stale_from_counts(self._ghosts, axes_now,
-                                                  host[6:]):
-            return False
-        self._rebuild_ghosts(state.pos.cpu().numpy(), valid.cpu().numpy())
-        self.ghost_refreshes += 1
-        return True
+        have no plan: False.  The span ``"ghost upkeep"`` covers it all."""
+        sp = self.spans
+        sp.begin("ghost upkeep")
+        try:
+            if not self._windowed:
+                return False
+            valid = state.prop >= 0
+            parts = [gh.valid_extremes(state.pos, ~valid).flatten()]
+            if self._ghosts is not None:
+                parts.append(gh.strip_counts(
+                    self._ghosts, self.cell_grid, state.pos,
+                    valid).to(parts[0].dtype))
+            host = torch.cat(parts).tolist()
+            axes_now = gh.wrap_test(self.cell_grid, host[0:3], host[3:6],
+                                    self._frame_support,
+                                    self.cfg.two_dimensional)
+            if not force and not gh.stale_from_counts(self._ghosts, axes_now,
+                                                      host[6:]):
+                return False
+            self._rebuild_ghosts(state.pos.cpu().numpy(), valid.cpu().numpy())
+            self.ghost_refreshes += 1
+            return True
+        finally:
+            sp.mark("ghost upkeep")
 
     def _cover(self, extremes, pos, prop) -> bool:
         """Rebuild the ghost plan where the extremes (six numbers on the
@@ -528,21 +542,25 @@ class Simulation:
         permutation ``inv`` where the caller has it), phase 2, gravity, and
         the return to slot order (ghost rows and plane pads dropped), for a
         frame that is already sorted."""
-        fgrid = self._frame_grid
+        fgrid, sp = self._frame_grid, self.spans
         phase1, phase2, _ = self._sweeps
+        sp.begin("phase1")
         f1 = phase1(frame, fgrid, self.kernels, self.tables, cfg=self._pcfg,
                     windows=windows)
-        self._mark("phase1")
+        sp.mark("phase1")
         if gsrc is not None:
+            sp.begin("ghost fields")
             if inv is None:
                 inv = _inverse_permutation(frame.orig)
             f1 = self._propagate_ghost_fields(inv, f1, gsrc)
-            self._mark("ghost fields")
+            sp.mark("ghost fields")
+        sp.begin("phase2")
         force_s = phase2(
             frame, f1, fgrid, self.kernels, self.tables, volume=self.volume,
             two_dimensional=self.cfg.two_dimensional, cfg=self._pcfg,
             windows=windows)
-        self._mark("phase2")
+        sp.mark("phase2")
+        sp.begin("integrate")  # ends in the step, after the kick and drift
         return self._gravity_unsort(frame, force_s)
 
     def _gravity_unsort(self, frame: pk.SortedFrame, force_s):
@@ -563,12 +581,14 @@ class Simulation:
         ``[N, K]`` edges (operands gathered by index, the formulas of
         ``ops/edge_math``) and gravity, in slot order.  Returns the total
         force and the neighbour list."""
-        cfg, ks, tables = self.cfg, self.kernels, self.tables
+        cfg, ks, tables, sp = self.cfg, self.kernels, self.tables, self.spans
+        sp.begin("neighbors")
         nbr = build_neighbor_list(
             pos, prop >= 0, self.cell_grid,
             max_neighbors=cfg.numerics.max_neighbors,
             cell_capacity=self.cell_capacity)
-        self._mark("neighbors")
+        sp.mark("neighbors", rebuilt=True)
+        sp.begin("phase1")
         ctx = fl.make_pair_context(pos, prop, nbr, self.domain_width, tables)
         j = ctx.j
 
@@ -589,8 +609,9 @@ class Simulation:
         kappa, lam, mu = fl.physical_coefficients(prop, vs, tables)
         pp = fl.pressure_p(vs, dvg, kappa, lam)
         pa = fl.pressure_a(da, ks, prop, tables)
-        self._mark("phase1")
+        sp.mark("phase1")
 
+        sp.begin("phase2")
         force = em.phase2_force(
             geom, ks, volume=self.volume, two_dimensional=cfg.two_dimensional,
             receiver_is_structure=s_i,
@@ -601,8 +622,9 @@ class Simulation:
             ratio_ij=ctx.ratio_ij, ratio_ji=ctx.ratio_ji,
             cof_a_i=tables.cof_a[ctx.prop_i],
         ).T
-        self._mark("phase2")
+        sp.mark("phase2")
 
+        sp.begin("integrate")
         # gravity on fluid + structure (calculateGravity, src/main.cpp:2917-2935)
         seg = Segments(prop)
         mass = self.tables.density[torch.clamp(prop, 0, 5).long()] * self.volume
@@ -621,34 +643,42 @@ class Simulation:
         window table serves both phases of a window sweep (the JAX
         row-major functions each compute the same table again).  Returns
         ``(force, ghost_overflow)``."""
+        sp = self.spans
         if not self._windowed:
             if self._backend == "gather":
                 force, nbr = self._fluid_phase(pos, vel, prop)
                 occupancy = nbr.cell_overflow
             else:
+                sp.begin("frame")
                 frame = self._packed_frame(pos, vel, prop)
-                self._mark("frame")
+                sp.mark("frame", rebuilt=True)
+                sp.begin("candidates")
                 views = pk.frame_views(frame, self.cell_grid,
                                        self.cell_capacity)
-                self._mark("candidates")
+                sp.mark("candidates")
+                sp.begin("phases 1 and 2")
                 force_s, fields = pk.packed_fluid_forces(
                     frame, self.cell_grid, self.kernels, self.tables,
                     volume=self.volume,
                     two_dimensional=self.cfg.two_dimensional,
                     cap=self.cell_capacity, views=views)
-                self._mark("phases 1 and 2")
+                sp.mark("phases 1 and 2")
+                sp.begin("integrate")
                 force = self._gravity_unsort(frame, force_s)
                 occupancy = fields["cell_overflow"]
             self.peak_occupancy = torch.maximum(self.peak_occupancy,
                                                 occupancy)
             return force, torch.zeros((), dtype=torch.int32,
                                       device=self.device)
+        if self._ghosts is not None:
+            sp.begin("ghost rows")
         finputs, gsrc, overflow = self._frame_inputs(pos, vel, prop)
         if gsrc is not None:
-            self._mark("ghost rows")
+            sp.mark("ghost rows")
+        sp.begin("frame")
         frame = self._frame(*finputs)
         windows = pw.compute_windows(frame, self._frame_grid, self._pcfg)
-        self._mark("frame")
+        sp.mark("frame", rebuilt=True)
         return self._pair_forces(frame, windows, gsrc), overflow
 
     @property
@@ -738,11 +768,15 @@ class Simulation:
             return None, None, cache
         # a plan rebuilt now (or between chunks) invalidates the frame
         self._cover(ext, pos, prop)
-        self._mark("read")
+        sp = self.spans
+        sp.mark("read")
         if disp2_host > self._rebuild_thresh2 or spec is not self._ghosts:
+            if self._ghosts is not None:
+                sp.begin("ghost rows")
             finputs, gsrc, gover = self._frame_inputs(pos, vel, prop)
             if gsrc is not None:
-                self._mark("ghost rows")
+                sp.mark("ghost rows")
+            sp.begin("frame")
             frame = self._frame(*finputs)
             ws, wl_ = pw.compute_windows(frame, self._frame_grid, self._pcfg)
             inv = (_inverse_permutation(frame.orig) if gsrc is not None
@@ -764,10 +798,12 @@ class Simulation:
             if gsrc is not None:
                 # image payloads from their sources (frozen map); pos_eff
                 # keeps a crosser glued to the cached frame's patch
+                sp.begin("ghost rows")
                 pos_x = torch.cat([pos_eff,
                                    pos_eff[gsrc] + self._ghost_shift_rows])
                 vel_x = torch.cat([vel, vel[gsrc]])
-                self._mark("ghost rows")
+                sp.mark("ghost rows")
+            sp.begin("frame")
             if cache["pads"] is None:
                 pos_s, vel_s = pos_x[orig], vel_x[orig]
             else:
@@ -782,7 +818,7 @@ class Simulation:
             ws, wl_ = cache["ws"], cache["wl"]
             gover = torch.zeros((), dtype=torch.int32, device=self.device)
             new_cache = cache
-        self._mark("frame")
+        sp.mark("frame", rebuilt=new_cache is not cache)
         force = self._pair_forces(frame, (ws, wl_), new_cache["gsrc"],
                                   new_cache["inv"])
         return force, gover, new_cache
@@ -803,7 +839,9 @@ class Simulation:
         dt = cfg.dt
         prop = state.prop
         pos, vel, time = state.pos, state.vel, state.time
-        self._mark("begin")
+        sp = self.spans
+        sp.step()
+        sp.begin("read")  # ends with the read, in _force_cached on its path
 
         if cfg.scene.velocity_profile == "turek_inlet":
             vel = wl.turek_inlet_velocity(pos, vel, prop, time, cfg.scene)
@@ -832,7 +870,7 @@ class Simulation:
                 return None, cache
             if ext is not None:
                 self._cover(ext, pos, prop)
-            self._mark("read")
+            sp.mark("read")
             force, ghost_over = self._force(pos, vel, prop)
 
         # velocity kick for fluid + structure (calculateAcceleration,
@@ -845,17 +883,19 @@ class Simulation:
 
         # fluid drift (calculateConvection, src/main.cpp:1892-1906)
         pos = torch.where(seg.fluid[:, None], pos + vel * dt, pos)
-        self._mark("integrate")
+        sp.mark("integrate")
 
         # elastic substeps (src/main.cpp:653-663); skipped when the scene
         # has no structure particles
         if self.has_structure and cfg.substeps > 0:
+            sp.begin("solid")
             pos, vel = sl.run_substeps(
                 pos, vel, self.solid, self._width_t, cfg.elastic_dt,
                 cfg.substeps,
                 double_position_update=cfg.compat.double_substep_position_update,
+                spans=sp,
             )
-            self._mark("solid")
+            sp.mark("solid")
 
         return state.replace(
             pos=pos, vel=vel, wall_center=wall_center, time=time + dt,
@@ -877,9 +917,13 @@ class Simulation:
 
     # ------------------------------------------------------------------
     def step(self, state: ParticleState) -> ParticleState:
-        """One step with a fresh frame; the input state is left intact."""
+        """One step with a fresh frame, a chunk of its own; the input state
+        is left intact."""
+        self.spans.chunk()
         with torch.no_grad():
-            return self._step_core(state, None)[0]
+            state = self._step_core(state, None)[0]
+        self.spans.end()
+        return state
 
     def run_chunk(self, state: ParticleState, n_steps: int) -> ParticleState:
         """``n_steps`` steps.  With a rebuild margin the frame cache lives
@@ -887,9 +931,11 @@ class Simulation:
         the JAX package; ``last_chunk_rebuilds`` and ``rebuilds`` count the
         frame rebuilds.  The input state is left intact."""
         cache = self._init_cache(state) if self._margin_cached else None
+        self.spans.chunk()
         with torch.no_grad():
             for _ in range(n_steps):
                 state, cache = self._step_core(state, cache)
+        self.spans.end()
         done = cache["rebuilds"] if cache is not None else n_steps
         self.last_chunk_rebuilds = done
         self.rebuilds += done
@@ -920,9 +966,15 @@ class Simulation:
         with a rebuild margin the C8 predicate); the health scalar of the
         state a step starts from is read in that same transfer, so the guard
         adds one small reduction a step and one host read a chunk (for the
-        last state)."""
+        last state).
+
+        Spans: ``"probe"`` (the reduction) ends each step; ``"guard read"``
+        (the last health read: the chunk's last read, or the read of the
+        step found unhealthy) ends a chunk that took a step."""
         cache = self._init_cache(state) if self._margin_cached else None
         done, healthy = 0, True
+        sp = self.spans
+        sp.chunk()
         with torch.no_grad():
             invalid = state.prop < 0  # types do not change inside a chunk
             probe = None  # the entry state is not judged, as in the JAX loop
@@ -932,9 +984,16 @@ class Simulation:
                     healthy = False
                     break
                 state, done = nxt, done + 1
+                sp.begin("probe")
                 probe = self._top_speed2(state, invalid)
-            if healthy and probe is not None:
-                healthy = self._healthy(probe.item())
+                sp.mark("probe")
+            sp.end_step()
+            if done:
+                sp.begin("guard read")
+                if healthy:
+                    healthy = self._healthy(probe.item())
+                sp.mark("guard read")
+        sp.end()
         rebuilds = cache["rebuilds"] if cache is not None else done
         self.last_chunk_rebuilds = rebuilds
         self.rebuilds += rebuilds
@@ -954,26 +1013,31 @@ class Simulation:
         are assembled on the host by :meth:`diagnostics`."""
         cfg = self.cfg
         prop, pos, vel = state.prop, state.pos, state.vel
-        self._mark("begin")
+        sp = self.spans
+        sp.step("diagnostics")
         if self._windowed:
             (frame, inv, force_s, f1, virial_s, vp_s, cell_overflow,
              ghost_over, window_len) = self._window_phases(pos, vel, prop)
         else:
             # both candidate engines: the packed engine's phases, as in
             # the JAX package (its gather engine has no virial of its own)
+            sp.begin("frame")
             frame = self._packed_frame(pos, vel, prop)
             inv = _inverse_permutation(frame.orig)
-            self._mark("frame")
+            sp.mark("frame")
+            sp.begin("candidates")
             views = pk.frame_views(frame, self.cell_grid, self.cell_capacity)
-            self._mark("candidates")
+            sp.mark("candidates")
             kw = dict(volume=self.volume, two_dimensional=cfg.two_dimensional,
                       cap=self.cell_capacity, views=views)
+            sp.begin("phases 1 and 2")
             force_s, f1 = pk.packed_fluid_forces(
                 frame, self.cell_grid, self.kernels, self.tables, **kw)
-            self._mark("phases 1 and 2")
+            sp.mark("phases 1 and 2")
+            sp.begin("virial")
             virial_s, vp_s = pk.packed_virial(
                 frame, f1, self.cell_grid, self.kernels, self.tables, **kw)
-            self._mark("virial")
+            sp.mark("virial")
             # the fullest cell of phase 1; no window, no ghost row
             cell_overflow = f1["cell_overflow"]
             ghost_over = window_len = torch.zeros(
@@ -981,6 +1045,7 @@ class Simulation:
 
         # back to slot order: all rows in one gather by the inverse
         # permutation, which keeps the slots and drops the ghost rows
+        sp.begin("unsort")
         rows = torch.cat([
             force_s.T, f1["pressure_p"][None], f1["pressure_a"][None],
             f1["vol_strain"][None], f1["density_a"][None],
@@ -991,7 +1056,9 @@ class Simulation:
         force = slot[0:3].T
         pp, pa, vs, da = slot[3], slot[4], slot[5], slot[6]
         gc, nbr_count, vp, virial_rows = slot[8:11].T, slot[11], slot[12], slot[13:22]
-        self._mark("unsort")
+        sp.mark("unsort")
+
+        sp.begin("solid and tail")
 
         f = sl.deformation_gradient_subset(
             pos[self.solid.gather_idx], self.solid, self._width_t)
@@ -1027,7 +1094,8 @@ class Simulation:
             max_speed=torch.where(seg.valid, torch.linalg.norm(vel, dim=1),
                                   zero).max(),
         )
-        self._mark("solid and tail")
+        sp.mark("solid and tail")
+        sp.end()
         return out
 
     def _window_phases(self, pos, vel, prop):
@@ -1037,26 +1105,30 @@ class Simulation:
         and the longest window (the sweeps walk windows of any length
         exactly, so nothing overflows: a load signal only, which the
         command line logs as ``window_len``)."""
-        fgrid, pcfg, cfg = self._frame_grid, self._pcfg, self.cfg
+        fgrid, pcfg, cfg, sp = self._frame_grid, self._pcfg, self.cfg, self.spans
         phase1, phase2, virial = self._sweeps
+        sp.begin("frame")
         finputs, gsrc, ghost_over = self._frame_inputs(pos, vel, prop)
         frame = self._frame(*finputs)
         windows = pw.compute_windows(frame, fgrid, pcfg)
         inv = _inverse_permutation(frame.orig)
-        self._mark("frame")
+        sp.mark("frame")
+        sp.begin("phase1")
         f1 = phase1(frame, fgrid, self.kernels, self.tables, cfg=pcfg,
                     windows=windows, count=True)
         if gsrc is not None:
             f1 = self._propagate_ghost_fields(inv, f1, gsrc)
-        self._mark("phase1")
+        sp.mark("phase1")
+        sp.begin("phase2")
         force_s = phase2(
             frame, f1, fgrid, self.kernels, self.tables, volume=self.volume,
             two_dimensional=cfg.two_dimensional, cfg=pcfg, windows=windows)
-        self._mark("phase2")
+        sp.mark("phase2")
+        sp.begin("virial")
         virial_s, vp_s = virial(
             frame, f1, fgrid, self.kernels, self.tables, volume=self.volume,
             two_dimensional=cfg.two_dimensional, cfg=pcfg, windows=windows)
-        self._mark("virial")
+        sp.mark("virial")
         # true max cell occupancy over the frame grid's cells (the window
         # sweep consults no cell capacity; the metric stays commensurate
         # with the other engines')
