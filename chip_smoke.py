@@ -118,6 +118,11 @@ run on its first fault:
    between two trip counts), one launch of 512 trips timed alone, the trip
    loop's machine instructions per element-trip, the SM clock, and the
    bound by instruction issue beside the published float32 bound.
+8. the elastic substep kernel (``csrc/solid_substep.cu``) on the 1M Turek
+   channel's flag and the gate3d gate, float32, from each scene's state
+   after a warm chunk: a step's ``run_substeps`` warm and cold, its device
+   launches, the plain functions' time, and the gaps of the kernel and of
+   the plain float32 path from the plain float64 path after one step.
 
 ``python3 chip_smoke.py --kernels-only`` stops after phase 3a (build, register
 counts, double instances, the probe's check): the short first run of a new
@@ -1403,6 +1408,13 @@ def expect_counts(backend: str, steps: int, dumps: int) -> dict:
     return want
 
 
+def solid_calls(sim, steps: int) -> int:
+    """Calls of the elastic substep kernel (``ops/solid.launch_counts``) in
+    ``steps`` steps of ``sim`` on the card: one a substep where the scene
+    has structure rows, none where it has not."""
+    return steps * sim.cfg.substeps if sim.has_structure else 0
+
+
 def gate3d_case(backend: str, **numerics_kw):
     """``cases/gate3d`` as its ``execute.sh`` runs it: the grid of
     ``gate3d.boid`` through the port's generator (236,160 particles), the
@@ -1455,9 +1467,10 @@ def run_path(backend: str, scene: str = "bench"):
     ``pallas_t``, 5 on ``pallas``), with ``refresh_ghosts`` at every chunk
     boundary (timed apart), the launch counts of those steps, ms/step and
     its breakdown by section, and the host time of the extremes read each
-    step makes."""
+    step makes; the elastic substep kernel's calls, one a substep."""
     import torch
     from particlemethod_fsi_tpu_torch.ops import ghosts as gh
+    from particlemethod_fsi_tpu_torch.ops import solid as sl
     from particlemethod_fsi_tpu_torch.ops import windows as pw
 
     t0 = time.time()
@@ -1482,6 +1495,7 @@ def run_path(backend: str, scene: str = "bench"):
         fail(f"{scene} path: {ghosts} ghost rows")
 
     pw.reset_launch_counts()
+    sl.reset_launch_counts()
     state = sim.run_chunk(sim.state0, chunk)  # warm-up
     torch.cuda.synchronize()
     chunk_ms, refresh_ms = [], []
@@ -1498,6 +1512,7 @@ def run_path(backend: str, scene: str = "bench"):
         chunk_ms.append((time.time() - t0) * 1e3 / chunk)
     events, sim.profile_events = sim.profile_events, None
     counts = dict(pw.launch_counts)
+    solid = sl.launch_counts["solid_substep"]
     steps = chunk * (TIMED_CHUNKS + 1)
     # the extremes each step reads (with the C8 predicate on pallas_t, on
     # their own on pallas): a reduction and a read of six numbers
@@ -1515,6 +1530,9 @@ def run_path(backend: str, scene: str = "bench"):
     if counts != expect_counts(backend, steps, 0):
         fail(f"{scene} path ({backend}): launch counts {counts} after {steps} "
              f"steps")
+    if solid != solid_calls(sim, steps):
+        fail(f"{scene} path ({backend}): {solid} solid substep kernel calls "
+             f"in {steps} steps of {sim.cfg.substeps} substeps")
     # the field-major backend reuses its frame under the C8 margin; the
     # row-major one rebuilds every step
     if backend == "pallas_t" and not 0 < sim.rebuilds < steps:
@@ -1563,7 +1581,8 @@ def run_path(backend: str, scene: str = "bench"):
     print(f"{scene} path ({backend}): {sim.n} particles ({sim.n_pad} slots, "
           f"{ghosts} ghost rows), float32, set-up {setup_s:.1f} s, {steps} "
           f"steps, rebuilds {sim.rebuilds}, ghost plan rebuilds "
-          f"{sim.ghost_refreshes}, launches {json.dumps(counts)}, ms/step by "
+          f"{sim.ghost_refreshes}, launches {json.dumps(counts)}, solid "
+          f"substep kernel calls {solid}, ms/step by "
           f"chunk {[round(m, 3) for m in chunk_ms]}, median {ms:.3f} "
           f"ms/step, {sim.n / ms * 1e3:.4g} particle-steps/s, max speed "
           f"{speed:.4f} m/s, peak device memory "
@@ -1577,7 +1596,7 @@ def run_path(backend: str, scene: str = "bench"):
     summary = dict(ms_per_step=ms, chunk_ms=chunk_ms, ghost_rows=ghosts,
                    rebuilds=sim.rebuilds, refreshes=sim.ghost_refreshes,
                    refresh_ms=refresh_ms, extremes_read_ms=read_ms,
-                   breakdown=breakdown)
+                   breakdown=breakdown, solid_launches=solid)
     if scene == "turek":
         state, summary["plan_rebuild"] = time_plan_rebuild(sim, state)
     return sim, state, counts, summary
@@ -1659,6 +1678,7 @@ def run_engine_path(backend: str, scene: str):
     and the fullest cell against the capacity."""
     import torch
     from particlemethod_fsi_tpu_torch.ops import packed_engine as pk
+    from particlemethod_fsi_tpu_torch.ops import solid as sl
     from particlemethod_fsi_tpu_torch.ops import windows as pw
 
     torch.cuda.empty_cache()
@@ -1685,6 +1705,7 @@ def run_engine_path(backend: str, scene: str):
 
     chunk = PATH_CHUNK.get((scene, backend), CHUNK)
     pw.reset_launch_counts()
+    sl.reset_launch_counts()
     state = sim.run_chunk(sim.state0, chunk)  # warm-up
     torch.cuda.synchronize()
     chunk_ms = []
@@ -1698,6 +1719,7 @@ def run_engine_path(backend: str, scene: str):
         chunk_ms.append((time.time() - t0) * 1e3 / chunk)
     events, sim.profile_events = sim.profile_events, None
     counts = dict(pw.launch_counts)
+    solid = sl.launch_counts["solid_substep"]
     steps = chunk * (TIMED_CHUNKS + 1)
     peak = int(sim.peak_occupancy)
     peak_mib = torch.cuda.max_memory_allocated() / 2**20
@@ -1708,6 +1730,8 @@ def run_engine_path(backend: str, scene: str):
              f"{cap}: pairs were dropped on a timed path")
     if any(counts.values()):
         fail(f"{what}: window kernels launched: {counts}")
+    if solid != solid_calls(sim, steps):
+        fail(f"{what}: {solid} solid substep kernel calls in {steps} steps")
     if sim.rebuilds != steps or sim.ghost_refreshes != 0:
         fail(f"{what}: {sim.rebuilds} rebuilds in {steps} steps, "
              f"{sim.ghost_refreshes} plan rebuilds")
@@ -1755,7 +1779,8 @@ def run_engine_path(backend: str, scene: str):
         ms_per_step=ms, chunk_ms=chunk_ms, particle_steps_per_s=sim.n / ms
         * 1e3, peak_memory_mib=peak_mib, capacity=cap,
         occupancy_step0=occupancy0, cells_full_step0=full0,
-        occupancy_peak=peak, rebuilds=sim.rebuilds, breakdown=breakdown)
+        occupancy_peak=peak, rebuilds=sim.rebuilds, breakdown=breakdown,
+        solid_launches=solid)
 
 
 def check_force_gap(state) -> dict:
@@ -1960,6 +1985,7 @@ def run_cli_path(tmp: str, backend: str, cli_steps: int, scene="bench"):
     from particlemethod_fsi_tpu_torch.io.vtk_writer import write_vtk_file
     from particlemethod_fsi_tpu_torch.models import (
         bench_config, bench_grid, turek_config, turek_grid)
+    from particlemethod_fsi_tpu_torch.ops import solid as sl
     from particlemethod_fsi_tpu_torch.ops import windows as pw
     from particlemethod_fsi_tpu_torch.solver import Simulation, load_case
     from particlemethod_fsi_tpu_torch.state import to_numpy
@@ -2008,11 +2034,13 @@ def run_cli_path(tmp: str, backend: str, cli_steps: int, scene="bench"):
             "--backend", backend, "--rebuild-margin", margin, "--dtype",
             "float32", "--metrics", j("metrics.jsonl")]
     pw.reset_launch_counts()
+    sl.reset_launch_counts()
     t0 = time.time()
     rc = cli.main(argv)
     torch.cuda.synchronize()
     cli_s = time.time() - t0
     counts = dict(pw.launch_counts)
+    solid = sl.launch_counts["solid_substep"]
     if rc != 0:
         fail(f"cli path: return code {rc}")
 
@@ -2052,6 +2080,10 @@ def run_cli_path(tmp: str, backend: str, cli_steps: int, scene="bench"):
     # chunk over the same steps from the same grid: written again with the
     # same writer, the bytes are equal
     sim = Simulation(cfg, grid)
+    if solid != solid_calls(sim, steps):
+        fail(f"cli path: {solid} solid substep kernel calls in {steps} steps "
+             f"of {cfg.substeps} substeps")
+    counts["solid_substep"] = solid
     state, done, ok = sim.run_chunk_guarded(sim.state0, cli_steps)
     if (done, ok) != (cli_steps, True):
         fail(f"cli path: reference chunk stopped after {done} steps")
@@ -2270,6 +2302,7 @@ def halo_path_1m(comm) -> dict:
     frame; the launches of one diagnostics call on the gathered state."""
     import torch
     from particlemethod_fsi_tpu_torch.models import build_case
+    from particlemethod_fsi_tpu_torch.ops import solid as sl
     from particlemethod_fsi_tpu_torch.ops import windows as pw
     from particlemethod_fsi_tpu_torch.parallel import halo
 
@@ -2301,6 +2334,7 @@ def halo_path_1m(comm) -> dict:
     torch.cuda.synchronize()
     setup_s = time.time() - t0
     pw.reset_launch_counts()
+    sl.reset_launch_counts()
     state, over = runner.run_chunk(state, HALO_CHUNK)  # warm-up
     rebuilds = runner.last_chunk_rebuilds
     chunk_ms = []
@@ -2315,11 +2349,15 @@ def halo_path_1m(comm) -> dict:
         over, rebuilds = max(over, o), rebuilds + runner.last_chunk_rebuilds
     events, sim.profile_events = sim.profile_events, None
     counts = dict(pw.launch_counts)
+    solid = sl.launch_counts["solid_substep"]
     steps = HALO_CHUNK * (TIMED_CHUNKS + 1)
     want = dict.fromkeys(counts, 0)
     want.update(phase1_sweep=steps, phase2_sweep=steps)
     if counts != want:
         fail(f"halo at 1M: launch counts {counts} after {steps} steps")
+    if solid != solid_calls(sim, steps):
+        fail(f"halo at 1M: {solid} solid substep kernel calls in {steps} "
+             f"steps")
     if over:
         fail(f"halo at 1M: overflow {over}")
     if not 0 < rebuilds < steps:
@@ -2339,7 +2377,7 @@ def halo_path_1m(comm) -> dict:
         hcfg=tuple(runner.hcfg), frame_rows=runner.n_rows, setup_s=setup_s,
         chunk_ms=chunk_ms, ms_per_step=float(np.median(chunk_ms)),
         rebuilds=rebuilds, steps=steps, overflow=over, launches=counts,
-        diagnostics_launches=diag_counts,
+        solid_launches=solid, diagnostics_launches=diag_counts,
         breakdown=section_breakdown(events, HALO_CHUNK), windows=windows,
         peak_mib=torch.cuda.max_memory_allocated() / 2**20)
     return out, rows
@@ -2351,6 +2389,7 @@ def allgather_path_1m(comm) -> dict:
     step, then a warm-up and two timed chunks; no window kernel."""
     import torch
     from particlemethod_fsi_tpu_torch.models import build_case
+    from particlemethod_fsi_tpu_torch.ops import solid as sl
     from particlemethod_fsi_tpu_torch.ops import windows as pw
     from particlemethod_fsi_tpu_torch.parallel import sharding
 
@@ -2359,6 +2398,7 @@ def allgather_path_1m(comm) -> dict:
     run = sharding.make_sharded_runner(sim, comm)
     state = sharding.shard_state(sim, comm, sim.state0)
     pw.reset_launch_counts()
+    sl.reset_launch_counts()
     ref = sim.run_chunk(sim.state0, 2)
     state = run(state, 2)
     gap = float((sharding.gather_state(comm, state).pos - ref.pos)
@@ -2374,12 +2414,18 @@ def allgather_path_1m(comm) -> dict:
         chunk_ms.append((time.time() - t0) * 1e3 / ALLGATHER_CHUNK)
     if any(pw.launch_counts.values()):
         fail(f"all-gather at 1M: window kernels launched {pw.launch_counts}")
+    # the one-device chunk's steps and the all-gather mode's
+    steps = 2 + 2 + 5 + 2 * ALLGATHER_CHUNK
+    solid = sl.launch_counts["solid_substep"]
+    if solid != solid_calls(sim, steps):
+        fail(f"all-gather at 1M: {solid} solid substep kernel calls in "
+             f"{steps} steps")
     if not bool(torch.isfinite(state.pos).all()):
         fail("all-gather at 1M: positions are not all finite")
     if not gap <= 1e-6:
         fail(f"all-gather at 1M: {gap:.3e} m from the one-device step")
     return dict(gap_from_one_device=gap, chunk_ms=chunk_ms,
-                ms_per_step=float(np.median(chunk_ms)),
+                ms_per_step=float(np.median(chunk_ms)), solid_launches=solid,
                 peak_mib=torch.cuda.max_memory_allocated() / 2**20)
 
 
@@ -2653,6 +2699,7 @@ def halo2d_rank(comm) -> dict:
     windows a rebuilding step builds from the end state."""
     import torch
     from particlemethod_fsi_tpu_torch.models import build_case
+    from particlemethod_fsi_tpu_torch.ops import solid as sl
     from particlemethod_fsi_tpu_torch.ops import windows as pw
     from particlemethod_fsi_tpu_torch.parallel import halo
     from particlemethod_fsi_tpu_torch.parallel.sharding import make_mesh_grid
@@ -2673,6 +2720,7 @@ def halo2d_rank(comm) -> dict:
     state, over = runner.run_chunk(state, HALO2D_WARMUP)
     rebuilds = runner.last_chunk_rebuilds
     pw.reset_launch_counts()
+    sl.reset_launch_counts()
     sim.profile_events = []
     calls, secs = comm.calls, comm.seconds
     torch.cuda.synchronize()
@@ -2687,6 +2735,8 @@ def halo2d_rank(comm) -> dict:
         rank=comm.rank, coords=comm.coords, hcfg=tuple(runner.hcfg),
         frame_rows=runner.n_rows, occupancy=occupancy, setup_s=setup_s,
         ms_per_step=ms, overflow=max(over, o), launches=counts,
+        solid_launches=sl.launch_counts["solid_substep"],
+        solid_want=solid_calls(sim, HALO2D_STEPS),
         threads=torch.get_num_threads(), load=load,
         rebuilds=rebuilds, timed_rebuilds=runner.last_chunk_rebuilds,
         collectives=(comm.calls - calls) / HALO2D_STEPS,
@@ -2736,6 +2786,9 @@ def halo2d_path_1m() -> tuple:
         want.update(phase1_sweep=steps, phase2_sweep=steps)
         if r["launches"] != want:
             fail(f"{tag}: launch counts {r['launches']} in {steps} steps")
+        if r["solid_launches"] != r["solid_want"]:
+            fail(f"{tag}: {r['solid_launches']} solid substep kernel calls "
+                 f"in {steps} steps, {r['solid_want']} expected")
     r0 = ranks[0]
     res = dict(
         hcfg=r0["hcfg"], splits_y=r0["splits_y"].tolist(),
@@ -2745,7 +2798,8 @@ def halo2d_path_1m() -> tuple:
         collectives=r0["collectives"],
         collective_ms=[r["collective_ms"] for r in ranks],
         rebuilds=[r["rebuilds"] + r["timed_rebuilds"] for r in ranks],
-        launches=r0["launches"], breakdown=r0["breakdown"],
+        launches=r0["launches"], solid_launches=r0["solid_launches"],
+        breakdown=r0["breakdown"],
         threads=r0["threads"], load=r0["load"],
         setup_s=max(r["setup_s"] for r in ranks), spawn_s=spawn_s)
     sim = build_case(N_SIDE, device="cuda")
@@ -3062,6 +3116,107 @@ def sm_clock_mhz(fn, seconds: float = 2.0) -> list:
     if not samples:
         fail("nvidia-smi gave no SM clock")
     return samples
+
+
+def time_solid(scene: str) -> dict:
+    """Phase 8 on ``scene`` ("turek" or "gate3d", ``pallas_t``): the
+    solid's ``run_substeps`` a step (gather, ``substeps`` kernel calls of
+    two launches each, scatter) from the state after a 20-step chunk, warm
+    (mean of 50), cold (10, each after a 256 MiB write) and the device's
+    time alone (20 behind a ~10 ms spin that hides the host's enqueue);
+    the plain functions on the card for the same; the device launches of
+    one call (profiler); the widest gaps of the kernel's and the plain float32
+    path's positions (m) and velocities (m/s) from the plain float64 path
+    after one call, and of the float64 kernel's, which must lie within 1e-9
+    of each component's largest magnitude.  Bound: bytes (the compacted
+    tables' valid slots, the per-row tables and the state read and written,
+    each substep) over 3.35 TB/s.  The launches the main paths make are
+    counted on those paths (:func:`solid_calls`)."""
+    import torch
+    from particlemethod_fsi_tpu_torch.ops import solid as sl
+
+    sim = build_scene(scene, "pallas_t")
+    state = sim.run_chunk(sim.state0, CHUNK)
+    torch.cuda.synchronize()
+    s, cfg = sim.solid, sim.cfg
+    kw = dict(double_position_update=cfg.compat.double_substep_position_update)
+
+    def kernel():
+        return sl.run_substeps(state.pos, state.vel, s, sim._width_t,
+                               cfg.elastic_dt, cfg.substeps, **kw)
+
+    def plain(solid=s, pos=state.pos, vel=state.vel, width=sim._width_t):
+        sub_pos, sub_vel = pos[solid.gather_idx], vel[solid.gather_idx]
+        for _ in range(cfg.substeps):
+            sub_pos, sub_vel, _, _ = sl.substep_subset(
+                sub_pos, sub_vel, solid, width, cfg.elastic_dt, **kw)
+        return sub_pos, sub_vel
+
+    sl.reset_launch_counts()
+    ms = time_ms(kernel, 50)
+    cold_ms = time_ms_cold(kernel, 10)
+    device_ms = time_ms(kernel, 20, lead=True)
+    if sl.launch_counts["solid_substep"] != 82 * cfg.substeps:
+        fail(f"solid ({scene}): {sl.launch_counts} kernel calls for 82 steps")
+    plain_ms = time_ms(plain, 5)
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        kernel()
+        torch.cuda.synchronize()
+    launches = sum(e.device_type == torch.autograd.DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False)
+                   for e in prof.events())
+    valid, rows = s.s_valid, s.gather_idx[:s.n_struct]
+    s64 = s._replace(**{k: v.double() for k, v in s._asdict().items()
+                        if isinstance(v, torch.Tensor)
+                        and v.is_floating_point()})
+    pos64, vel64, w64 = (state.pos.double(), state.vel.double(),
+                         sim._width_t.double())
+    ref = plain(s64, pos64, vel64, w64)
+    p32 = plain()
+    pos, vel = kernel()
+    got = (pos[rows], vel[rows])
+    pos, vel = sl.run_substeps(pos64, vel64, s64, w64, cfg.elastic_dt,
+                               cfg.substeps, **kw)
+    got64 = (pos[rows], vel[rows])
+    gaps = {}
+    for i, what in enumerate(("pos", "vel")):
+        r = ref[i][valid]
+        gaps[f"{what}_kernel"] = float((got[i].double() - r).abs().max())
+        gaps[f"{what}_plain32"] = float((p32[i][valid].double() - r)
+                                        .abs().max())
+        gaps[f"{what}_kernel64"] = float((got64[i] - r).abs().max())
+        if gaps[f"{what}_kernel"] > 2 * gaps[f"{what}_plain32"] + 1e-6 * float(
+                r.abs().max()):
+            fail(f"solid ({scene}): kernel {what} gap {gaps}")
+        for c in range(3):
+            gap64 = float((got64[i][:, c] - r[:, c]).abs().max())
+            if gap64 > 1e-9 * float(r[:, c].abs().max()):
+                fail(f"solid ({scene}): float64 kernel {what}[{c}] "
+                     f"{gap64:.3e} from the plain float64 path")
+    sd, s_pad = s.xij0.shape[-1], s.s_pad
+    slots = int(s.count0_c.sum())
+    per_substep = (slots * 4 * (2 + sd)  # nbr, w, xij of the valid slots
+                   + s_pad * 4 * (1 + sd * sd + 3 + 3)  # count A^-1 rho lam mu pos0
+                   + s_pad * 2  # clamp, valid
+                   + s_pad * 4 * 12  # pos, vel read and written
+                   + s_pad * 4 * sd * sd * 2)  # P written and read
+    row = _row("solid_substep", "solid_substep.cu",
+               "none (plain jnp: particlemethod_fsi_tpu/ops/solid.py "
+               "substep_subset)", gaps["pos_kernel"], ms, cold_ms, plain_ms,
+               per_substep * cfg.substeps, 0.0)
+    row.update(device_launches_per_step=launches, rows=s.n_struct, slots=slots,
+               kc=s.nbr0_c.shape[0], gaps=gaps, device_ms=device_ms)
+    print(f"solid substep ({scene}; {s.n_struct} rows, {slots} valid slots, "
+          f"Kc {s.nbr0_c.shape[0]}, {cfg.substeps} substeps a step, float32): "
+          f"{ms:.4f} ms a step warm, {cold_ms:.4f} cold, {device_ms:.4f} "
+          f"the device alone (behind a spin), plain "
+          f"{plain_ms:.3f}; {launches} device launches a step; bound "
+          f"{row['bound_ms']:.6f} ms (bytes); gaps from float64: "
+          + json.dumps(gaps), flush=True)
+    del sim, state
+    torch.cuda.empty_cache()
+    return row
 
 
 def time_microbench() -> dict:
@@ -3406,6 +3561,7 @@ def main() -> int:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     probe_row = time_microbench()
+    solid_rows = {scene: time_solid(scene) for scene in ("turek", "gate3d")}
     # launches: of each backend's step path for the step kernels, of its
     # diagnostics call for the virial; the Turek channel's numbers beside
     # the bench scene's; the command-line paths' counts beside them
@@ -3434,7 +3590,14 @@ def main() -> int:
             row = next(r for r in rows["bench"]
                        if r["name"] == halo_row["name"])
             row[key] = {k: v for k, v in halo_row.items() if k != "name"}
-    rows = rows["bench"] + [probe_row]
+    # the solid kernel's calls on the main paths: each scene's pallas_t path
+    # and its command-line path (one a substep; two device launches each)
+    for scene, row in solid_rows.items():
+        row["launches"] = paths[f"{scene}/pallas_t"]["solid_launches"]
+        row["launches_cli_path"] = scene_cli[scene]["solid_substep"]
+    solid_row = solid_rows["turek"]
+    solid_row["gate3d"] = solid_rows["gate3d"]
+    rows = rows["bench"] + [probe_row, solid_row]
 
     print(json.dumps({"paths": paths}))
     print(card_line)

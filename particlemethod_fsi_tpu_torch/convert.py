@@ -29,7 +29,7 @@ from particlemethod_fsi_tpu_torch.ops.fluid import TypeTables
 from particlemethod_fsi_tpu_torch.ops.neighbors import CellGrid, NeighborList
 from particlemethod_fsi_tpu_torch.ops.packed_engine import SortedFrame
 from particlemethod_fsi_tpu_torch.ops.smoothing import KernelSet
-from particlemethod_fsi_tpu_torch.ops.solid import SolidStatic
+from particlemethod_fsi_tpu_torch.ops.solid import SolidStatic, compact_neighbors
 from particlemethod_fsi_tpu_torch.ops.windows import WindowConfig
 from particlemethod_fsi_tpu_torch.state import ParticleState
 
@@ -145,8 +145,9 @@ def type_tables_from_numpy(d: dict, *, dtype: torch.dtype,
 
 def solid_static_from_numpy(d: dict, *, dtype: torch.dtype,
                             device="cpu") -> SolidStatic:
-    """Fields of a JAX ``SolidStatic`` -> the port's, with the two fields the
-    port adds (clamped gather indices, count of valid rows)."""
+    """Fields of a JAX ``SolidStatic`` -> the port's, with the fields the
+    port adds (clamped gather indices, the kernel's compacted neighbour
+    tables, count of valid rows)."""
     s_idx = np.asarray(d["s_idx"])
     s_valid = np.asarray(d["s_valid"])
     n_full = int(np.asarray(d["count0_full"]).shape[0])
@@ -154,6 +155,8 @@ def solid_static_from_numpy(d: dict, *, dtype: torch.dtype,
     if not s_valid[:n_s].all():
         raise ValueError("SolidStatic: valid rows must be a prefix")
     floats = ("xij0", "wij0", "normalizer", "sub_pos0", "inv_rho", "lam", "mu")
+    nbr0_c, xij0_c, wij0_c, count0_c = compact_neighbors(
+        d["nbr0"], d["mask0"], d["xij0"], d["wij0"])
     return SolidStatic(
         s_idx=_as(s_idx, torch.int32, device),
         s_valid=_as(s_valid, torch.bool, device),
@@ -163,6 +166,10 @@ def solid_static_from_numpy(d: dict, *, dtype: torch.dtype,
         clamp=_as(d["clamp"], torch.bool, device),
         count0_full=_as(d["count0_full"], torch.int32, device),
         gather_idx=_as(np.minimum(s_idx, n_full - 1), torch.int64, device),
+        nbr0_c=_as(nbr0_c, torch.int32, device),
+        xij0_c=_as(xij0_c, dtype, device),
+        wij0_c=_as(wij0_c, dtype, device),
+        count0_c=_as(count0_c, torch.int32, device),
         n_struct=n_s,
     )
 

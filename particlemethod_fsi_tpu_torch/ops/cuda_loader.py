@@ -163,6 +163,16 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.fsi_bf16_microbench_terms.argtypes = [
         ci, vp, vp, vp, ci, ci, vp,  # bf16 x y out n trip stream
     ]
+    # the elastic substep (ops/solid.py); a build of an older tree lacks it
+    substep = getattr(lib, "fsi_solid_substep", None)
+    if substep is not None:
+        substep.restype = ci
+        substep.argtypes = [
+            ci, ci, vp, vp, vp, vp, vp,  # is_double sd pos vel outs p
+            vp, vp, vp, vp, vp, vp,  # pos0 width nbr xij w count
+            vp, vp, vp, vp, vp, vp,  # nrm inv_rho lam mu clamp valid
+            ci, ci, ctypes.c_double, ctypes.c_double, vp,  # s kc dts stream
+        ]
     lib.fsi_virial_nconst.restype = ci
     lib.fsi_virial_nconst.argtypes = []
     lib.fsi_phase1_nconst.restype = ci

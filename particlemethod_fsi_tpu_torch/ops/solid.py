@@ -5,7 +5,16 @@ Counterpart of ``particlemethod_fsi_tpu/ops/solid.py``.  Ported:
 :func:`build_solid_static`, :func:`deformation_gradient_subset`,
 :func:`stvk_stress`, :func:`stress_velocity_kick`, :func:`substep_subset`,
 :func:`run_substeps`.  ``subset_tensors_to_full`` (diagnostics) is not ported
-yet.
+yet.  Added here: :func:`substeps_subset` (the substep loop alone, for the
+halo's replicated structure) and the hand-written substep kernel
+(``csrc/solid_substep.cu``).
+
+The functions above are the plain version.  :func:`run_substeps` and
+:func:`substeps_subset` take it only for CPU tensors; for a CUDA tensor
+each substep is one call of ``fsi_solid_substep`` (two launches, counted in
+:data:`launch_counts`) or the call raises.  The kernel walks the valid
+initial-neighbour slots of each row alone, from the compacted tables that
+:func:`compact_neighbors` adds to :class:`SolidStatic` at set-up.
 
 Re-implements the reference's solid op chain (``src/main.cpp``):
 ``calculateNormalizer`` (:2544-2653), ``calculateElasticDeformationVector``
@@ -59,6 +68,13 @@ class SolidStatic(NamedTuple):
     clamp: torch.Tensor  # [S] bool Dirichlet-clamped
     count0_full: torch.Tensor  # [N] int32 initial neighbor counts (diagnostics)
     gather_idx: torch.Tensor  # [S] int64: s_idx clamped to the last slot
+    # the valid slots of nbr0 / xij0 / wij0 moved to a prefix of each row,
+    # in slot order, slot-major, Kc = the most valid slots of a row (>= 1);
+    # read by the kernel only (compact_neighbors)
+    nbr0_c: torch.Tensor  # [Kc, S] int32 (0 past a row's count)
+    xij0_c: torch.Tensor  # [Kc, sd, S]
+    wij0_c: torch.Tensor  # [Kc, S]
+    count0_c: torch.Tensor  # [S] int32 valid initial neighbours a row
     n_struct: int  # valid rows = the first n_struct
 
     @property
@@ -102,6 +118,23 @@ def inverse_with_identity_fallback(a: np.ndarray) -> np.ndarray:
     inv = adj / safe_det[..., None, None]
     eye = np.eye(sd, dtype=a.dtype)
     return np.where(ok[..., None, None], inv, eye)
+
+
+def compact_neighbors(nbr0, mask0, xij0, wij0):
+    """Host numpy: each row's valid initial-neighbour slots moved to a
+    prefix, in slot order, laid out slot-major for the kernel.  Returns
+    ``(nbr0_c [Kc, S] int32, xij0_c [Kc, sd, S], wij0_c [Kc, S], count0_c [S]
+    int32)``; slots past a row's count hold 0."""
+    mask0 = np.asarray(mask0, dtype=bool)
+    count = mask0.sum(axis=1).astype(np.int32)
+    kc = max(1, int(count.max(initial=0)))
+    order = np.argsort(~mask0, axis=1, kind="stable")[:, :kc]
+    keep = np.take_along_axis(mask0, order, axis=1)
+    nbr = np.where(keep, np.take_along_axis(np.asarray(nbr0), order, axis=1), 0)
+    w = np.where(keep, np.take_along_axis(np.asarray(wij0), order, axis=1), 0.0)
+    xij = np.where(keep[..., None], np.take_along_axis(
+        np.asarray(xij0), order[..., None], axis=1), 0.0)
+    return (nbr.T.astype(np.int32), xij.transpose(1, 2, 0), w.T, count)
 
 
 def build_solid_static(
@@ -206,6 +239,8 @@ def build_solid_static(
         return torch.as_tensor(np.ascontiguousarray(x)).to(
             device=device, dtype=dt)
 
+    nbr0_c, xij0_c, wij0_c, count0_c = compact_neighbors(
+        nbr0_sub, mask0, xij0, wij0)
     return SolidStatic(
         s_idx=g(s_idx),
         s_valid=g(s_valid),
@@ -221,6 +256,10 @@ def build_solid_static(
         clamp=g(clamp),
         count0_full=g(count0_full),
         gather_idx=g(gather_idx, torch.int64),
+        nbr0_c=g(nbr0_c),
+        xij0_c=f(xij0_c),
+        wij0_c=f(wij0_c),
+        count0_c=g(count0_c),
         n_struct=n_s,
     )
 
@@ -307,14 +346,103 @@ def substep_subset(sub_pos, sub_vel, solid: SolidStatic, domain_width,
     return sub_pos, sub_vel, strain, stress
 
 
-def run_substeps(pos, vel, solid: SolidStatic, domain_width, elastic_dt: float,
-                 substeps: int, *, double_position_update: bool, spans=None):
-    """Gather structure subset, run the substep loop, scatter back.  Returns
-    new ``pos`` / ``vel`` tensors; the inputs are left intact.  ``spans``
-    (the caller's ``utils.trace.Spans``) gets each substep as a part of its
-    open section."""
-    sub_pos = pos[solid.gather_idx]
-    sub_vel = vel[solid.gather_idx]
+# kernel launches (one a substep: fsi_solid_substep's two launches count
+# once); the plain version never counts
+launch_counts = {"solid_substep": 0}
+
+
+def reset_launch_counts() -> None:
+    for k in launch_counts:
+        launch_counts[k] = 0
+
+
+def _substeps_cuda(pos_in, vel_in, pos_out, vel_out, solid: SolidStatic,
+                   domain_width, elastic_dt: float, substeps: int, *,
+                   double_position_update: bool, spans=None):
+    """``substeps`` (>= 1) substeps through ``csrc/solid_substep.cu``: the
+    first reads ``pos_in`` / ``vel_in``, every one writes ``pos_out`` /
+    ``vel_out``, and each later one reads and updates them in place.
+    Returns the outputs."""
+    from particlemethod_fsi_tpu_torch.ops import cuda_loader
+
+    dtype, dev = pos_in.dtype, pos_in.device
+    s_pad, sd = solid.s_pad, solid.xij0.shape[-1]
+    kc = solid.nbr0_c.shape[0]
+    if dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"solid substep: unsupported dtype {dtype}")
+    width = torch.as_tensor(domain_width, dtype=dtype, device=dev)
+    for name, t, shape, dt in (
+        ("pos_in", pos_in, (s_pad, 3), dtype),
+        ("vel_in", vel_in, (s_pad, 3), dtype),
+        ("pos_out", pos_out, (s_pad, 3), dtype),
+        ("vel_out", vel_out, (s_pad, 3), dtype),
+        ("width", width, (3,), dtype),
+        ("sub_pos0", solid.sub_pos0, (s_pad, 3), dtype),
+        ("nbr0_c", solid.nbr0_c, (kc, s_pad), torch.int32),
+        ("xij0_c", solid.xij0_c, (kc, sd, s_pad), dtype),
+        ("wij0_c", solid.wij0_c, (kc, s_pad), dtype),
+        ("count0_c", solid.count0_c, (s_pad,), torch.int32),
+        ("normalizer", solid.normalizer, (s_pad, sd, sd), dtype),
+        ("inv_rho", solid.inv_rho, (s_pad,), dtype),
+        ("lam", solid.lam, (s_pad,), dtype),
+        ("mu", solid.mu, (s_pad,), dtype),
+        ("clamp", solid.clamp, (s_pad,), torch.bool),
+        ("s_valid", solid.s_valid, (s_pad,), torch.bool),
+    ):
+        if (tuple(t.shape) != shape or t.dtype != dt or t.device != dev
+                or not t.is_contiguous()):
+            raise ValueError(
+                f"solid substep: {name} must be a contiguous {dt} tensor of "
+                f"shape {shape} on {dev}; got {t.dtype} {tuple(t.shape)} on "
+                f"{t.device}, contiguous={t.is_contiguous()}")
+    lib = cuda_loader.load()
+    p_buf = torch.empty((sd * sd, s_pad), dtype=dtype, device=dev)
+    move_dt = (2.0 if double_position_update else 1.0) * elastic_dt
+    # the pointers, read once: only the first substep reads other inputs
+    src = (pos_in.data_ptr(), vel_in.data_ptr())
+    out = (pos_out.data_ptr(), vel_out.data_ptr())
+    tables = (p_buf.data_ptr(), solid.sub_pos0.data_ptr(), width.data_ptr(),
+              solid.nbr0_c.data_ptr(), solid.xij0_c.data_ptr(),
+              solid.wij0_c.data_ptr(), solid.count0_c.data_ptr(),
+              solid.normalizer.data_ptr(), solid.inv_rho.data_ptr(),
+              solid.lam.data_ptr(), solid.mu.data_ptr(),
+              solid.clamp.data_ptr(), solid.s_valid.data_ptr(), s_pad, kc,
+              float(elastic_dt), float(move_dt))
+    is_double = int(dtype == torch.float64)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        for _ in range(substeps):
+            if spans is not None:
+                spans.part("solid substep")
+            err = lib.fsi_solid_substep(is_double, sd, *src, *out, *tables,
+                                        stream)
+            if err != 0:
+                raise RuntimeError(
+                    f"solid substep: launch refused (cudaGetLastError = "
+                    f"{err}; -1 means the arguments are outside what the "
+                    f"kernel takes)")
+            launch_counts["solid_substep"] += 1
+            src = out
+    return pos_out, vel_out
+
+
+def substeps_subset(sub_pos, sub_vel, solid: SolidStatic, domain_width,
+                    elastic_dt: float, substeps: int, *,
+                    double_position_update: bool, spans=None):
+    """``substeps`` elastic substeps in subset space (``sub_pos`` /
+    ``sub_vel``: ``[S, 3]``); returns new tensors, the inputs are left
+    intact.  CUDA tensors go through the kernel, CPU tensors through
+    :func:`substep_subset`; no substep (``substeps`` 0, as a data file whose
+    ElasticDt exceeds twice its Dt gives) returns copies of the inputs.
+    ``spans`` gets each substep as a part of its open section."""
+    if substeps <= 0:
+        return sub_pos.clone(), sub_vel.clone()
+    if sub_pos.is_cuda:
+        return _substeps_cuda(
+            sub_pos, sub_vel, torch.empty_like(sub_pos),
+            torch.empty_like(sub_vel), solid, domain_width, elastic_dt,
+            substeps, double_position_update=double_position_update,
+            spans=spans)
     for _ in range(substeps):
         if spans is not None:
             spans.part("solid substep")
@@ -322,6 +450,20 @@ def run_substeps(pos, vel, solid: SolidStatic, domain_width, elastic_dt: float,
             sub_pos, sub_vel, solid, domain_width, elastic_dt,
             double_position_update=double_position_update,
         )
+    return sub_pos, sub_vel
+
+
+def run_substeps(pos, vel, solid: SolidStatic, domain_width, elastic_dt: float,
+                 substeps: int, *, double_position_update: bool, spans=None):
+    """Gather structure subset, run the substep loop, scatter back.  Returns
+    new ``pos`` / ``vel`` tensors; the inputs are left intact.  ``spans``
+    (the caller's ``utils.trace.Spans``) gets each substep as a part of its
+    open section.  The loop is :func:`substeps_subset`: the kernel for a
+    CUDA tensor, the plain functions for a CPU tensor."""
+    sub_pos, sub_vel = substeps_subset(
+        pos[solid.gather_idx], vel[solid.gather_idx], solid, domain_width,
+        elastic_dt, substeps, double_position_update=double_position_update,
+        spans=spans)
     n_s = solid.n_struct
     rows = solid.gather_idx[:n_s]
     pos = pos.index_copy(0, rows, sub_pos[:n_s])

@@ -1099,12 +1099,10 @@ class HaloStep:
                 s_valid, self.s_mass[:, None] * sim._grav_t, zero)
             s_vel = torch.where(
                 s_valid, s_vel + s_force / self.s_mass[:, None] * dt, s_vel)
-            for _ in range(cfg.substeps):
-                sp.part("solid substep")
-                s_pos, s_vel, _, _ = sl.substep_subset(
-                    s_pos, s_vel, sim.solid, sim._width_t, cfg.elastic_dt,
-                    double_position_update=(
-                        cfg.compat.double_substep_position_update))
+            s_pos, s_vel = sl.substeps_subset(
+                s_pos, s_vel, sim.solid, sim._width_t, cfg.elastic_dt,
+                cfg.substeps, double_position_update=(
+                    cfg.compat.double_substep_position_update), spans=sp)
             sp.mark("solid")
 
         new = HaloState(prop=prop, pos=pos, pos0=x.pos0, vel=vel, oid=x.oid,

@@ -281,12 +281,12 @@ def test_kernel_sources_and_loader_need_no_compiler_at_import():
 
     cu = sorted(p.name for p in cuda_loader.CSRC_DIR.glob("*.cu"))
     assert cu == ["bf16_microbench.cu", "phase1_sweep.cu", "phase2_sweep.cu",
-                  "virial_sweep.cu"]
-    # every kernel's C entry point, kernels 1-7
+                  "solid_substep.cu", "virial_sweep.cu"]
+    # every kernel's C entry point, kernels 1-7 and the elastic substep
     text = " ".join(p.read_text() for p in cuda_loader.CSRC_DIR.glob("*.cu"))
     for entry in ("fsi_phase1_sweep", "fsi_phase2_sweep", "fsi_virial_sweep",
                   "fsi_phase1_rows", "fsi_phase2_rows", "fsi_virial_rows",
-                  "fsi_bf16_microbench"):
+                  "fsi_bf16_microbench", "fsi_solid_substep"):
         assert f'extern "C" int {entry}(' in text, entry
     for p in cuda_loader.CSRC_DIR.glob("*.cu"):
         text = p.read_text()

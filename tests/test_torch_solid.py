@@ -112,3 +112,165 @@ def test_run_substeps_matches_jax_on_bent_bar(double_update):
     assert clamped.any()
     np.testing.assert_array_equal(ppos.numpy()[: grid.n][clamped],
                                   grid.initial_position[clamped])
+
+
+def _plain_substeps(sub_pos, sub_vel, solid, width, dt, n, double_update):
+    """The substep loop as the plain functions run it."""
+    for _ in range(n):
+        sub_pos, sub_vel, _, _ = sl.substep_subset(
+            sub_pos, sub_vel, solid, width, dt,
+            double_position_update=double_update)
+    return sub_pos, sub_vel
+
+
+def test_compacted_neighbour_tables_hold_the_valid_slots():
+    """Each row's valid slots, in slot order, as a prefix of the kernel's
+    slot-major tables; zeros past the count."""
+    _, _, psim = _bar_sims()
+    s = psim.solid
+    mask = s.mask0.numpy()
+    count = s.count0_c.numpy()
+    np.testing.assert_array_equal(count, mask.sum(axis=1))
+    kc = s.nbr0_c.shape[0]
+    assert kc == max(1, int(count.max())) < s.nbr0.shape[1]
+    for i in range(s.s_pad):
+        slots = np.nonzero(mask[i])[0]
+        n = slots.size
+        np.testing.assert_array_equal(s.nbr0_c[:n, i].numpy(),
+                                      s.nbr0[i, slots].numpy())
+        np.testing.assert_array_equal(s.wij0_c[:n, i].numpy(),
+                                      s.wij0[i, slots].numpy())
+        np.testing.assert_array_equal(s.xij0_c[:n, :, i].numpy(),
+                                      s.xij0[i, slots].numpy())
+        assert not s.nbr0_c[n:, i].any() and not s.wij0_c[n:, i].any()
+        assert not s.xij0_c[n:, :, i].any()
+
+
+@pytest.mark.parametrize("double_update", [True, False])
+def test_cpu_substeps_take_the_plain_functions(double_update):
+    """On CPU tensors both entry points give, bit for bit, what the plain
+    functions give, and no kernel launch is counted."""
+    grid, _, psim = _bar_sims()
+    pos, vel = (torch.as_tensor(a) for a in _bent(grid, psim.n_pad))
+    s, w = psim.solid, psim._width_t
+    sl.reset_launch_counts()
+    want_s = _plain_substeps(pos[s.gather_idx], vel[s.gather_idx], s, w,
+                             1e-5, 4, double_update)
+    got_s = sl.substeps_subset(pos[s.gather_idx], vel[s.gather_idx], s, w,
+                               1e-5, 4, double_position_update=double_update)
+    for a, b in zip(got_s, want_s):
+        assert torch.equal(a, b)
+    rows = s.gather_idx[:s.n_struct]
+    want = (pos.index_copy(0, rows, want_s[0][:s.n_struct]),
+            vel.index_copy(0, rows, want_s[1][:s.n_struct]))
+    got = sl.run_substeps(pos, vel, s, w, 1e-5, 4,
+                          double_position_update=double_update)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert sl.launch_counts == {"solid_substep": 0}
+
+
+def test_no_substep_returns_copies_on_either_device(monkeypatch):
+    """``substeps`` 0 (a data file whose ElasticDt exceeds twice its Dt)
+    leaves the state as the plain loop leaves it, in new tensors: on CPU
+    tensors and on a tensor reporting ``is_cuda``, which never reaches the
+    kernel's wrapper."""
+    grid, _, psim = _bar_sims()
+    pos, vel = (torch.as_tensor(a) for a in _bent(grid, psim.n_pad))
+    s, w = psim.solid, psim._width_t
+
+    def boom(*a, **k):
+        raise AssertionError("a substep ran")
+
+    for name in ("substep_subset", "_substeps_cuda"):
+        monkeypatch.setattr(sl, name, boom)
+
+    class FakeCuda(torch.Tensor):
+        @property
+        def is_cuda(self):
+            return True
+
+    sl.reset_launch_counts()
+    for p, v in ((pos, vel), (pos.as_subclass(FakeCuda),
+                              vel.as_subclass(FakeCuda))):
+        sub = (p[s.gather_idx], v[s.gather_idx])
+        got = sl.substeps_subset(*sub, s, w, 1e-5, 0,
+                                 double_position_update=True)
+        for a, b in zip(got, sub):
+            assert torch.equal(a, b) and a.data_ptr() != b.data_ptr()
+        got = sl.run_substeps(p, v, s, w, 1e-5, 0,
+                              double_position_update=True)
+        for a, b in zip(got, (pos, vel)):
+            assert torch.equal(a, b) and a.data_ptr() != b.data_ptr()
+    assert sl.launch_counts["solid_substep"] == 0
+
+
+def test_cpu_halo_structure_step_takes_the_plain_functions(monkeypatch):
+    """The halo's replicated structure step (one rank, in process) is bit
+    for bit the step with the plain substep loop in its place, and counts
+    no kernel launch."""
+    from particlemethod_fsi_tpu_torch.parallel import halo
+    from particlemethod_fsi_tpu_torch.parallel.comm import Comm
+
+    grid = mini_fsi()
+    cfg = dam_like_config(**WINDOW_KW).replace(
+        scene=SCENES["dam"], young_modulus=(0.0, 0.0, 1e3, 1e3, 1e8, 1e4))
+    psim = Simulation(port_cfg(cfg), port_grid(grid), device="cpu")
+    comm = Comm.local()
+
+    def two_steps():
+        hstep = halo.make_halo_step(psim, comm)
+        state = halo.partition_state(psim, comm, hstep.hcfg)
+        for _ in range(2):
+            state, over = hstep.step(state)
+            assert over == 0
+        return state
+
+    sl.reset_launch_counts()
+    got = two_steps()
+    assert sl.launch_counts == {"solid_substep": 0}
+
+    def plain(sub_pos, sub_vel, solid, width, dt, n, *,
+              double_position_update, spans=None):
+        return _plain_substeps(sub_pos, sub_vel, solid, width, dt, n,
+                               double_position_update)
+
+    monkeypatch.setattr(sl, "substeps_subset", plain)
+    want = two_steps()
+    assert float((got.s_vel - psim.state0.vel[psim.solid.gather_idx])
+                 .abs().max()) > 0
+    for k in ("s_pos", "s_vel", "pos", "vel"):
+        assert torch.equal(getattr(got, k), getattr(want, k)), k
+
+
+def test_cuda_tensor_never_takes_the_plain_substep(monkeypatch):
+    """A tensor that reports ``is_cuda`` goes to the kernel's wrapper, which
+    raises here (no card, no nvcc), and never reaches a plain function."""
+
+    class FakeCuda(torch.Tensor):
+        @property
+        def is_cuda(self):
+            return True
+
+    def boom(*a, **k):
+        raise AssertionError("plain substep called for a CUDA tensor")
+
+    for name in ("substep_subset", "deformation_gradient_subset",
+                 "stvk_stress", "stress_velocity_kick"):
+        monkeypatch.setattr(sl, name, boom)
+    grid, _, psim = _bar_sims()
+    pos, vel = (torch.as_tensor(a).as_subclass(FakeCuda)
+                for a in _bent(grid, psim.n_pad))
+    assert pos.is_cuda and pos[psim.solid.gather_idx].is_cuda
+    s = psim.solid
+    for call in (
+        lambda: sl.run_substeps(pos, vel, s, psim._width_t, 1e-5, 2,
+                                double_position_update=True),
+        lambda: sl.substeps_subset(pos[s.gather_idx], vel[s.gather_idx], s,
+                                   psim._width_t, 1e-5, 2,
+                                   double_position_update=True),
+    ):
+        with pytest.raises(Exception) as e:
+            call()
+        assert not isinstance(e.value, AssertionError)
+    assert sl.launch_counts["solid_substep"] == 0
