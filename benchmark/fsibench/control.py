@@ -1,7 +1,8 @@
-"""The control: the plain reference put in the program's place and computed
-a step below the configurations' float32 (each pair's terms in bfloat16,
-state and sums in float32; :mod:`fsibench.reference`).  Driven through the
-harness like the program, it has to come out as not correct."""
+"""The control: the configuration's plain reference
+(:func:`fsibench.harness.reference_for`) put in the program's place and
+computed a step below the configurations' float32 (each pair's terms in
+bfloat16, state and sums in float32).  Driven through the harness like the
+program, it has to come out as not correct."""
 
 from __future__ import annotations
 
@@ -9,8 +10,7 @@ from typing import NamedTuple
 
 import torch
 
-from fsibench.physics import physics
-from fsibench.reference import Reference
+from fsibench.harness import BENCH_DIR, reference_for
 
 
 class State(NamedTuple):
@@ -21,9 +21,12 @@ class State(NamedTuple):
 
 class ControlProgram:
     """The program's interface to the harness (``start``, ``fresh``,
-    ``chunk``), stepped by the reference with bfloat16 pair terms."""
+    ``chunk``), stepped by the reference with bfloat16 pair terms.
+    ``bench_dir`` is the benchmark folder a named reference is found in."""
 
-    def __init__(self, cfg: dict, scene: dict, device):
+    def __init__(self, cfg: dict, scene: dict, device,
+                 bench_dir: str = BENCH_DIR):
+        physics, Reference = reference_for(cfg, bench_dir)
         phys = physics(cfg, scene["domain_min"], scene["domain_max"])
         self.ref = Reference(phys, scene["prop"], scene["pos"], device,
                              precision="bfloat16")

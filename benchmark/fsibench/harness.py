@@ -5,26 +5,30 @@ Everything a cell is made of is found by name: ``BENCHMARK.json`` names the
 cell, its configuration's file and its metrics; ``workloads/<cell>.json``
 holds the traffic parameters and the comparison's limits;
 ``scenes/<scene>.py`` builds the configuration's particles;
-``metrics/<metric>.py`` reads one per-layer metric.  Adding a configuration,
-a cell or a metric adds files and entries and edits none.
+``references/<name>.py`` is the plain reference of a configuration that
+names one (:func:`reference_for`); ``metrics/<metric>.py`` reads one
+per-layer metric (:func:`metric_path`).  Adding a configuration, a cell or
+a metric adds files and entries and edits none.
 """
 
 from __future__ import annotations
 
+import contextlib
 import importlib.util
 import json
 import math
 import os
 import random
+import re
 import time
 
 import torch
 
-from fsibench import physics as physics_lib
+from fsibench import physics as frozen_physics
+from fsibench import reference as frozen_reference
 from fsibench import traffic
 from fsibench import trace as trace_lib
 from fsibench.pairs import count_pairs, min_image
-from fsibench.reference import Reference
 
 BENCH_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ROOT = os.path.dirname(BENCH_DIR)
@@ -40,6 +44,39 @@ def load_module(path: str, name: str):
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+# a name of BENCHMARK.json's format: a file under ``references/`` is named so
+NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
+
+
+def reference_for(cfg: dict, bench_dir: str = BENCH_DIR) -> tuple:
+    """The plain reference of configuration ``cfg``: ``(physics,
+    Reference)``.  A configuration whose file says ``"reference": "<name>"``
+    gets ``references/<name>.py`` under ``bench_dir``, loaded by path, which
+    defines both with the frozen modules' interface; any other the frozen
+    :func:`fsibench.physics.physics` and :class:`fsibench.reference.Reference`.
+    The comparison, the control and ``readings.py`` all take it from here."""
+    name = cfg.get("reference")
+    if name is None:
+        return frozen_physics.physics, frozen_reference.Reference
+    if not isinstance(name, str) or not NAME.match(name):
+        raise ValueError(f"reference {name!r} is not a name")
+    mod = load_module(os.path.join(bench_dir, "references", f"{name}.py"),
+                      "fsibench_reference_" + re.sub(r"\W", "_", name))
+    return mod.physics, mod.Reference
+
+
+def metric_path(name: str, bench_dir: str = BENCH_DIR) -> str:
+    """The reader of per-layer metric ``name``: ``metrics/<name>.py``.  A
+    quantity split by the end-to-end metric it moves, ``<quantity>.<part>``
+    (``step_mfu.device_rate`` beside ``step_mfu``), is read by its own file
+    where it has one, else by the quantity's."""
+    path = os.path.join(bench_dir, "metrics", f"{name}.py")
+    if not os.path.isfile(path) and "." in name:
+        path = os.path.join(bench_dir, "metrics",
+                            name.rsplit(".", 1)[0] + ".py")
+    return path
 
 
 def _for_cell(metric: dict, cell: str) -> bool:
@@ -78,10 +115,42 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
+def device_busy_s(prof) -> float:
+    """Seconds in which an activity ran on the card in a finished profile:
+    the union of its device activities, as :func:`fsibench.trace.read`
+    takes it, but from the profiler's raw events, which give a chunk's
+    ~10^5 activities in under a second where its event tree takes several."""
+    cuda = torch.autograd.DeviceType.CUDA
+    events = prof.profiler.kineto_results.events()
+    spans = sorted((e.start_ns(), e.end_ns()) for e in events
+                   if e.device_type() == cuda and not e.is_user_annotation()
+                   and not e.name().startswith("fsibench."))
+    busy, end = 0, None
+    for s, e in spans:
+        if end is None or s > end:
+            busy += e - s
+            end = e
+        elif e > end:
+            busy += e - end
+            end = e
+    return busy * 1e-9
+
+
+@contextlib.contextmanager
+def _device_traced(on: bool):
+    """The card's activity trace (CUPTI alone) over the block, or
+    nothing."""
+    if not on:
+        yield None
+        return
+    with trace_lib.profiled(True) as prof:
+        yield prof
+
+
 QUANTILE = 0.999
 
 
-def gaps(start, end, ref: Reference, time0: float, steps: int, n: int,
+def gaps(start, end, ref, time0: float, steps: int, n: int,
          spacing: float, prop=None, log=None) -> dict:
     """The reference over one chunk from ``start`` (positions, velocities),
     against the program's chunk-end state ``end``, over the scene's
@@ -129,7 +198,8 @@ def run_cell(spec: dict, seed: int, seconds: float, trace: bool, device,
     n_chunks = traffic.chunks_per_episode(mix)
     marks = [("imports", time.time())]
     scene = build_scene(spec)
-    phys = physics_lib.physics(cfg, scene["domain_min"], scene["domain_max"])
+    physics, Reference = reference_for(cfg, spec["bench_dir"])
+    phys = physics(cfg, scene["domain_min"], scene["domain_max"])
     pos64, vel64 = traffic.start_state(scene, mix, seed, phys.dim,
                                        phys.domain_width, device)
     marks.append(("scene and start state", time.time()))
@@ -140,6 +210,14 @@ def run_cell(spec: dict, seed: int, seconds: float, trace: bool, device,
     # the later chunk the comparison takes, drawn from the seed
     k_late = random.Random(seed).randrange(1, n_chunks) if n_chunks > 1 else 0
     trace_chunks = min(n_chunks, mix.get("trace_chunks", n_chunks))
+    # a cell whose end-to-end rate is the card's runs every chunk of an
+    # untraced window under the card's activity trace, and divides its
+    # particle-steps by the seconds in which the card was busy.  The trace
+    # costs only the host's time, which that rate does not read: its first
+    # start (~11 s on an H100's host) and a chunk's ~2x host time and ~3 s
+    # of reading fall in the window, and set-up stays the program's own
+    trace_busy = not trace and device.type == "cuda" and any(
+        m["source"] == "device_trace" for m in spec["end_to_end"])
 
     # warm-up: one chunk of the cell's own shapes, from a fresh copy
     prog.chunk(prog.fresh(s0), steps)
@@ -155,6 +233,8 @@ def run_cell(spec: dict, seed: int, seconds: float, trace: bool, device,
     held, chunk_ms = {}, []
     tracer = _Tracer(prog, device, trace_chunks, steps, n) if trace else None
     chunks = steps_done = failed = episode = 0
+    busy_s = 0.0
+    plain = [0.0, 0]  # host seconds and steps of the chunks nothing traced
     t0 = time.perf_counter()
     stop = False
     while not stop:
@@ -165,12 +245,20 @@ def run_cell(spec: dict, seed: int, seconds: float, trace: bool, device,
             start = ((pos64, vel64) if (episode, k) == (0, 0)
                      else (state.pos, state.vel))
             t_chunk = time.perf_counter()
-            with torch.profiler.record_function("fsibench.chunk"):
-                state, done, ok = prog.chunk(state, steps)
+            with _device_traced(trace_busy) as prof:
+                with torch.profiler.record_function("fsibench.chunk"):
+                    state, done, ok = prog.chunk(state, steps)
+                if prof is not None:
+                    _sync(device)
             t_chunk = time.perf_counter() - t_chunk
+            if prof is not None:
+                busy_s += device_busy_s(prof)
             chunk_ms.append(t_chunk * 1e3 / steps)
             if tracer:
                 tracer.after(episode, k, t_chunk, done)
+            if tracer is None or tracer.untraced(episode, k):
+                plain[0] += t_chunk
+                plain[1] += done
             chunks += 1
             steps_done += done
             if (episode, k) == (0, 0):
@@ -195,21 +283,28 @@ def run_cell(spec: dict, seed: int, seconds: float, trace: bool, device,
             tracer.name_gaps(state)
     result = dict(correct=False, attempted=chunks, failed=failed)
     rate = n * steps_done / window_s
+    device_rate = n * steps_done / busy_s if busy_s > 0 else None
     log(f"{spec['name']}: seed {seed}, {n} particles, set-up {setup_s:.3f} s, "
         f"window {window_s:.3f} s, {chunks} chunks ({episode} episodes "
         f"begun), {steps_done} steps, {rate:.6g} particle-steps/s, "
+        + (f"card busy {busy_s:.6g} s, {device_rate:.6g} particle-steps a "
+           "busy second, " if device_rate else "") +
         f"rebuilds {prog.rebuilds}, peak device memory {peak} bytes; "
         f"ms/step by chunk (host clock) {[round(m, 3) for m in chunk_ms]}; "
         + prog.describe(state))
 
     metrics, extra = {}, {}
     if trace and not failed:
-        metrics, extra = _per_layer(spec, prog, tracer, phys, n, log)
+        metrics, extra = _per_layer(spec, prog, tracer, phys, n, plain, log)
         tracer = None
     elif not trace:
-        e2e = {"particle_steps_per_s": rate, "setup_s": setup_s}
+        # the card's rate reads nothing without a card
+        e2e = {"particle_steps_per_s": rate, "setup_s": setup_s,
+               "device_particle_steps_per_s": device_rate}
         for m in spec["end_to_end"]:
-            metrics[m["name"]] = {"value": e2e[m["name"]], "unit": m["unit"]}
+            if e2e[m["name"]] is not None:
+                metrics[m["name"]] = {"value": e2e[m["name"]],
+                                      "unit": m["unit"]}
 
     # the program's state is freed before the reference runs
     del prog, state, s0, tracer
@@ -327,6 +422,10 @@ class _Tracer:
             self.events = self.prog.take_spans()
             self.prog.spans_on(False)
 
+    def untraced(self, episode: int, k: int) -> bool:
+        """Whether chunk ``k`` of ``episode`` ran with nothing on."""
+        return self._phase(episode, k) in (None, "clean")
+
     @property
     def done(self) -> bool:
         return self.prof is not None
@@ -347,7 +446,7 @@ class _Tracer:
             self._close()
 
 
-def _per_layer(spec, prog, tracer, phys, n, log):
+def _per_layer(spec, prog, tracer, phys, n, plain, log):
     """The traced window's readings, then each per-layer metric's reader."""
     from fsibench.program import section_ms
 
@@ -361,7 +460,8 @@ def _per_layer(spec, prog, tracer, phys, n, log):
         step_s=tracer.step_s("clean"),
         kernels=got["kernels"], spans=section_ms(tracer.events),
         pairs=sum(pairs) / len(pairs), particles=n,
-        three_d=phys.dim == 3, ghost_rows=prog.ghost_rows)
+        three_d=phys.dim == 3, ghost_rows=prog.ghost_rows,
+        plain_s=plain[0], plain_steps=plain[1])
     clean = ctx["step_s"]
     log(f"{spec['name']}: traced {tracer.steps} steps in "
         f"{tracer.window_s:.3f} s, busy {got['busy_s']:.4f} s in "
@@ -376,8 +476,7 @@ def _per_layer(spec, prog, tracer, phys, n, log):
             for phase in _Tracer.PHASES))
     metrics = {}
     for m in spec["per_layer"]:
-        mod = load_module(os.path.join(spec["bench_dir"], "metrics",
-                                       f"{m['name']}.py"),
+        mod = load_module(metric_path(m["name"], spec["bench_dir"]),
                           "fsibench_metric_" + m["name"].replace(".", "_"))
         value = mod.read(ctx)
         if value is not None:

@@ -18,36 +18,95 @@ import numpy as np
 import torch
 
 from particlemethod_fsi_tpu_torch.config import (
-    CaseConfig, CompatFlags, NumericsConfig, SceneConfig)
+    TYPE_COUNT, CaseConfig, CompatFlags, NumericsConfig, RollingMotion,
+    SceneConfig, WallMotion)
 from particlemethod_fsi_tpu_torch.io.grid_file import GridData
 from particlemethod_fsi_tpu_torch.solver import Simulation
 
+# top-level keys of a configuration file that are the benchmark's own: the
+# manifest's name, source and cuts, the scene builder's name and inputs, the
+# plain reference's name, and notes.  Every other key is a field of the
+# port's CaseConfig, and the file's ``scene_physics`` is its ``scene``.
+OWN_KEYS = frozenset({"name", "source", "scene", "reference", "reduced",
+                      "assumed", "sizes", "geometry", "particles", "slots",
+                      "memory"})
+SCENE_KEY = "scene_physics"
+
+
+def _fields(cls, group: dict, where: str) -> dict:
+    """``group``'s keys, each a field of ``cls``; any other is refused by
+    name."""
+    if not isinstance(group, dict):
+        raise ValueError(f"{where}: not an object")
+    unknown = sorted(set(group) - {f.name for f in dataclasses.fields(cls)})
+    if unknown:
+        raise ValueError(f"{where}: {', '.join(unknown)} not a field of the "
+                         f"port's {cls.__name__}")
+    return dict(group)
+
+
+def _tuples(value):
+    """JSON lists as the tuples the port's frozen dataclasses hold."""
+    if isinstance(value, list):
+        return tuple(_tuples(v) for v in value)
+    return value
+
+
+def wall_motion(walls) -> tuple | None:
+    """``walls``: ``"static"`` (None: the port's default) or a list of six
+    ``{center, velocity, omega}``, one a particle type."""
+    if walls == "static":
+        return None
+    if not isinstance(walls, list) or len(walls) != TYPE_COUNT:
+        raise ValueError(f"walls: \"static\" or a list of {TYPE_COUNT} "
+                         "wall motions, one a type")
+    return tuple(WallMotion(**{k: _tuples(v) for k, v in _fields(
+        WallMotion, w, f"walls[{t}]").items()}) for t, w in enumerate(walls))
+
+
+def scene_config(group: dict) -> SceneConfig:
+    """The port's SceneConfig of ``scene_physics``, its ``rolling``
+    (``{max_angle_deg, period}``) a RollingMotion."""
+    kw = _fields(SceneConfig, group, SCENE_KEY)
+    if kw.get("rolling") is not None:
+        kw["rolling"] = RollingMotion(**_fields(
+            RollingMotion, kw["rolling"], f"{SCENE_KEY}.rolling"))
+    return SceneConfig(**kw)
+
+
 def case_config(cfg: dict, dtype: str | None = None) -> CaseConfig:
-    """The port's case configuration of a configuration file."""
-    if cfg.get("walls", "static") != "static":
-        raise ValueError("only static walls are configured")
-    numerics = dict(cfg["numerics"])
+    """The port's case configuration of a configuration file: every field
+    of CaseConfig the file states, nested classes included, and the port's
+    default for the rest; ``dtype`` overrides the numerics' type.  A key
+    that is neither the benchmark's own nor a field of the port's class is
+    refused by name."""
+    case_fields = {f.name for f in dataclasses.fields(CaseConfig)}
+    unknown = sorted(set(cfg) - OWN_KEYS - {SCENE_KEY}
+                     - (case_fields - {"scene"}))
+    if unknown:
+        raise ValueError(f"{', '.join(unknown)}: neither the benchmark's own "
+                         "key nor a field of the port's CaseConfig")
+    kw = {}
+    for key, value in cfg.items():
+        if key in OWN_KEYS:
+            continue
+        if key == SCENE_KEY:
+            kw["scene"] = scene_config(value)
+        elif key == "walls":
+            walls = wall_motion(value)
+            if walls is not None:
+                kw["walls"] = walls
+        elif key == "compat":
+            kw["compat"] = CompatFlags(**_fields(CompatFlags, value, key))
+        elif key == "numerics":
+            kw["numerics"] = NumericsConfig(**_fields(NumericsConfig, value,
+                                                      key))
+        else:
+            kw[key] = _tuples(value)
     if dtype is not None:
-        numerics["dtype"] = dtype
-    return CaseConfig(
-        dt=cfg["dt"], elastic_dt=cfg["elastic_dt"],
-        radius_ratio_a=cfg["radius_ratio_a"],
-        radius_ratio_p=cfg["radius_ratio_p"],
-        radius_ratio_v=cfg["radius_ratio_v"],
-        density=tuple(cfg["density"]),
-        bulk_modulus=tuple(cfg["bulk_modulus"]),
-        bulk_viscosity=tuple(cfg["bulk_viscosity"]),
-        shear_viscosity=tuple(cfg["shear_viscosity"]),
-        surface_tension=tuple(cfg["surface_tension"]),
-        young_modulus=tuple(cfg["young_modulus"]),
-        poisson_ratio=tuple(cfg["poisson_ratio"]),
-        interaction_ratio=tuple(tuple(r) for r in cfg["interaction_ratio"]),
-        gravity=tuple(cfg["gravity"]),
-        two_dimensional=cfg["two_dimensional"],
-        scene=SceneConfig(**cfg["scene_physics"]),
-        compat=dataclasses.replace(CompatFlags(), **cfg["compat"]),
-        numerics=NumericsConfig(**numerics),
-    )
+        kw["numerics"] = dataclasses.replace(
+            kw.get("numerics", NumericsConfig()), dtype=dtype)
+    return CaseConfig(**kw)
 
 
 def grid_data(scene: dict) -> GridData:

@@ -99,6 +99,10 @@ def test_every_cell_reports_what_it_must(manifest):
         assert spec["per_layer"]
     for m in manifest["per_layer"]:
         assert set(m.get("workloads", cells)) <= set(cells)
+        # each cell it lists reports the end-to-end metric it moves
+        for cell in m.get("workloads", cells):
+            assert m["moves"] in {e["name"] for e in
+                                  harness.cell_spec(cell)["end_to_end"]}
 
 
 def test_files_found_by_name(manifest):
@@ -120,8 +124,10 @@ def test_files_found_by_name(manifest):
         assert all(math.isfinite(v) and v > 0
                    for v in spec["cell"]["check"].values())
     for m in manifest["per_layer"]:
-        assert os.path.isfile(os.path.join(BENCH, "metrics",
-                                           m["name"] + ".py"))
+        path = harness.metric_path(m["name"])
+        assert os.path.isfile(path)
+        assert os.path.basename(path) in (m["name"] + ".py", m["name"].rsplit(
+            ".", 1)[0] + ".py")
 
 
 def test_configs_cover_each_cell_and_are_distinct(manifest):

@@ -146,12 +146,18 @@ def test_harness_imports_no_jax():
 
 def test_reference_imports_nothing_of_the_port():
     """The reference and everything it reads run with the port (and the
-    JAX package) unimportable."""
+    JAX package) unimportable; so does every configuration's own reference
+    under ``references/``, each with ``physics`` and ``Reference``."""
     r = _run(("jax", "jaxlib", "flax", "particlemethod_fsi_tpu",
               "particlemethod_fsi_tpu_torch"), """
-        import copy, json, os
+        import copy, glob, json, os
         from fsibench import harness, physics, pairs, reference, control
         from fsibench import traffic, roofline
+        for f in sorted(glob.glob(os.path.join(harness.BENCH_DIR,
+                                               "references", "*.py"))):
+            name = os.path.basename(f)[:-3]
+            phys_fn, ref_cls = harness.reference_for({"reference": name})
+            assert callable(phys_fn) and callable(ref_cls.run), name
         spec = copy.deepcopy(harness.cell_spec("dam3d-2m.collapse"))
         spec["config"]["geometry"] = GEOMETRY
         spec["config"]["sizes"]["depth"] = 0.012
