@@ -146,6 +146,17 @@ def test_compacted_neighbour_tables_hold_the_valid_slots():
         assert not s.xij0_c[n:, :, i].any()
 
 
+def test_compaction_refuses_slots_that_are_not_a_prefix():
+    """The set-up's lists (and the JAX package's) fill each row from its
+    first slot; a row with a gap is refused, not reordered."""
+    nbr = np.arange(6).reshape(2, 3)
+    xij, wij = np.ones((2, 3, 2)), np.ones((2, 3))
+    sl.compact_neighbors(nbr, np.array([[1, 1, 0], [1, 0, 0]], bool), xij, wij)
+    with pytest.raises(ValueError, match="prefix"):
+        sl.compact_neighbors(nbr, np.array([[1, 0, 1], [1, 0, 0]], bool),
+                             xij, wij)
+
+
 @pytest.mark.parametrize("double_update", [True, False])
 def test_cpu_substeps_take_the_plain_functions(double_update):
     """On CPU tensors both entry points give, bit for bit, what the plain

@@ -2,8 +2,10 @@
 against the plain functions of ``ops/solid.py`` on the same card.
 
 Solids: the Turek-Hron flag at the channel's 5 mm and 1 mm spacings (320 and
-8,000 rows, clamped at the cylinder) and the elastic gate of
-``cases/gate3d`` (3-D, 2,240 rows, clamped at the floor), each built from
+8,000 rows, clamped at the cylinder), the elastic gate of ``cases/gate3d``
+(3-D, 2,240 rows, clamped at the floor) and the rocking tank's post at 1 mm
+through a periodic depth of 20 layers (3-D, 10,000 rows, clamped at the
+floor; every row's neighbours reach across the depth's seam), each built from
 its structure rows alone (the initial neighbour lists are structure to
 structure, so the solid is the full scene's) and bent so that F != I, with a
 seeded velocity field.  Every solid has padding rows past its last valid row.
@@ -27,7 +29,7 @@ import torch
 
 from particlemethod_fsi_tpu_torch.config import SCENES
 from particlemethod_fsi_tpu_torch.generator import (
-    BoidScene, generate_grid, parse_boid_file)
+    BoidScene, Primitive, generate_grid, parse_boid_file)
 from particlemethod_fsi_tpu_torch.io.data_file import parse_data_file
 from particlemethod_fsi_tpu_torch.models.turek import turek_config, turek_grid
 from particlemethod_fsi_tpu_torch.ops import solid as sl
@@ -35,7 +37,8 @@ from particlemethod_fsi_tpu_torch.solver import Simulation
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GATE3D = os.path.join(REPO, "cases", "gate3d")
-SOLIDS = ("turek-5mm", "turek-1mm", "gate3d")
+ROLLING = os.path.join(REPO, "cases", "rolling")
+SOLIDS = ("turek-5mm", "turek-1mm", "gate3d", "post3d-seam")
 STEPS, SUBSTEPS = 50, 5
 
 
@@ -60,6 +63,18 @@ def _scene(name):
         l0 = 5e-3 if name == "turek-5mm" else 1e-3
         cfg = turek_config(l0, dtype="float64")
         return cfg, _structure_only(turek_grid(l0))
+    if name == "post3d-seam":
+        l0, depth = 1e-3, 0.02
+        grid = generate_grid(BoidScene(
+            particle_distance=l0, lower_domain=(-0.02, -0.02, 0.0),
+            upper_domain=(0.22, 0.22, depth), primitives=[Primitive(
+                "Cuboid", spacing=l0, type=2, lower=(0.1, 0.0, 0.0),
+                upper=(0.11, 0.05, depth))]))
+        cfg = parse_data_file(os.path.join(ROLLING, "rolling.data")).replace(
+            scene=SCENES["rolling"], two_dimensional=False, dt=4e-5,
+            elastic_dt=2e-5)
+        return cfg.replace(numerics=dataclasses.replace(
+            cfg.numerics, dtype="float64")), grid
     boid = parse_boid_file(os.path.join(GATE3D, "gate3d.boid"))
     gate = [p for p in boid.primitives if p.type == 2]
     grid = generate_grid(BoidScene(
